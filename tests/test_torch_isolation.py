@@ -1,0 +1,79 @@
+"""The port stands alone: no JAX, nothing of the JAX package, the card by
+default."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import collab_splats_tpu_torch
+from collab_splats_tpu_torch.core.cameras import camera_from_numpy, make_camera
+from collab_splats_tpu_torch.data.synthetic import (
+    orbit_cameras,
+    random_gaussian_params,
+)
+from collab_splats_tpu_torch.models.gaussians import params_from_numpy
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = Path(collab_splats_tpu_torch.__file__).parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "collab_splats_tpu"}
+
+
+def port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PORT)], prefix="collab_splats_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = port_modules()
+    assert "collab_splats_tpu_torch.ops.cuda.batched" in mods
+    code = "\n".join(
+        ["import sys"]
+        + [f"sys.modules[{m!r}] = None" for m in sorted(FORBIDDEN)]
+        + [f"import {m}" for m in mods]
+        + ["assert not any(m.split('.')[0] in "
+           f"{sorted(FORBIDDEN)!r} for m in sys.modules if sys.modules[m])"]
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: random_gaussian_params(torch.Generator(), 4),
+    lambda: orbit_cameras(1),
+    lambda: make_camera(100.0, 100.0, 32.0, 32.0, 64, 64, np.eye(4)),
+    lambda: camera_from_numpy(np.eye(3), np.eye(4), 64, 64),
+    lambda: params_from_numpy({
+        "means": np.zeros((2, 3), np.float32),
+        "scales": np.zeros((2, 3), np.float32),
+        "quats": np.zeros((2, 4), np.float32),
+        "opacities": np.zeros((2, 1), np.float32),
+        "features_dc": np.zeros((2, 3), np.float32),
+        "features_rest": np.zeros((2, 0, 3), np.float32),
+    }),
+], ids=["random_gaussian_params", "orbit_cameras", "make_camera",
+        "camera_from_numpy", "params_from_numpy"])
+def test_card_default_raises_without_a_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
