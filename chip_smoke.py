@@ -1,10 +1,19 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-Builds the port's two CUDA kernels from ``collab_splats_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-forward render (``models/rade_gs.py::get_outputs``) on the flagship scene
-(20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
-1280x720, four orbit cameras), checks what comes out, and prints timings.
+Builds the port's four CUDA kernels from ``collab_splats_tpu_torch/csrc``
+and holds each against its plain PyTorch version on the card.  Then it
+drives the port's two main paths:
+
+* the forward render (``models/rade_gs.py::get_outputs``) on the flagship
+  scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
+  1280x720, four orbit cameras);
+* the training step (``train/trainer.py::Trainer``) at the bench scene's
+  full width with sh_degree 3: twenty steps, the depth-normal loss off and
+  then on, one opacity reset and one refine pass; then one step repeated
+  from the same state, which must give the same bits, and a fitting run at
+  the flagship scale whose PSNR must rise by 3 dB.
+
+It checks what comes out and prints per-layer and per-kernel timings.
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -18,6 +27,7 @@ and its times beside its bound.
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -30,15 +40,25 @@ from collab_splats_tpu_torch.core.options import RenderOptions
 from collab_splats_tpu_torch.core.projection import project_gaussians
 from collab_splats_tpu_torch.data import synthetic
 from collab_splats_tpu_torch.models import gaussians, rade_gs
-from collab_splats_tpu_torch.ops import rasterize, tiles
-from collab_splats_tpu_torch.ops.cuda import batched, binning_kernel, build
+from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
+from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
+                                              segsum_kernel)
+from collab_splats_tpu_torch.train import losses, strategy
+from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
 # the bounds below are computed from.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TOL = dict(rtol=1e-5, atol=1e-5)
+# Gradients: rtol 5e-4 and atol 5e-5 * max|g| (tests/test_pallas.py:205-206).
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5
 REPS = 10
+PLAIN_REPS = 3     # the plain versions of the backward run for seconds
+TRAIN_STEPS = 20
+REG_FROM = 10      # the depth-normal loss from this step on
+REFINE_EVERY = 8   # opacity reset after step 8, refine pass after step 16
+FIT_STEPS = 300
 RENDER_REPS = 30   # the host-clock render time spreads more than a kernel's
 TS = 16
 NEAR = RenderOptions().near_plane
@@ -81,19 +101,27 @@ def timings(fn, host_clock=False, reps=REPS):
     return times
 
 
-def median_ms(fn, host_clock=False):
-    return statistics.median(timings(fn, host_clock))
+def median_ms(fn, host_clock=False, reps=REPS):
+    return statistics.median(timings(fn, host_clock, reps))
 
 
-def make_scene(name: str, dev, n=None, width=None, height=None):
+def assert_grad_close(got, ref, what):
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL * scale, msg=what)
+    return float((got - ref).abs().max())
+
+
+def make_scene(name: str, dev, n=None, width=None, height=None,
+               sh_degree=0):
     """(params, alive, cameras, config) of the flagship or the bench scene,
     with random weights drawn from a seeded generator."""
     gen = torch.Generator().manual_seed(0)
     if name == "flagship":
         # __graft_entry__.py::_flagship_scene.
         n, width, height = n or 20_000, width or 512, height or 512
-        params = synthetic.random_gaussian_params(gen, n, extent=1.0,
-                                                  device=dev)
+        params = synthetic.random_gaussian_params(
+            gen, n, extent=1.0, sh_degree=sh_degree, device=dev)
         cams = synthetic.orbit_cameras(1, radius=3.0, width=width,
                                        height=height, focal=1.2 * width,
                                        device=dev)
@@ -102,13 +130,15 @@ def make_scene(name: str, dev, n=None, width=None, height=None):
         # bench.py's configuration: 1M Gaussians at 1280x720.
         n, width, height = n or 1_000_000, width or 1280, height or 720
         params = synthetic.random_gaussian_params(
-            gen, n, extent=1.5, scale_range=(0.002, 0.006), device=dev)
+            gen, n, extent=1.5, scale_range=(0.002, 0.006),
+            sh_degree=sh_degree, device=dev)
         cams = synthetic.orbit_cameras(4, radius=3.0, width=width,
                                        height=height, focal=float(width),
                                        device=dev)
         opts = RenderOptions(rasterize_mode="antialiased", tile_capacity=512,
                              max_intersections=1 << 21, exact_binning=False)
-    cfg = rade_gs.RadeGSConfig(sh_degree=0, background="black", render=opts)
+    cfg = rade_gs.RadeGSConfig(sh_degree=sh_degree, background="black",
+                               render=opts)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     return params, alive, cams, cfg
 
@@ -162,19 +192,141 @@ def check_decode(plan) -> float:
     return float(err)
 
 
-def check_composite(g, mask, ntx) -> float:
-    """The kernel's outputs against the plain version's, within rtol/atol
-    1e-5.  Returns the max abs difference."""
-    got = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR)
-    ref = compositing.fused_forward(g, mask, ntx, TS, NEAR, tile_chunk=256)
-    for name, a, b in zip(("out_v", "alpha", "depth_acc", "median"), got,
-                          ref):
-        torch.testing.assert_close(a, b, msg=f"composite {name}", **TOL)
+def check_composite(g, mask, ntx):
+    """The forward kernel's outputs and banked prefix against the plain
+    version's, within rtol/atol 1e-5.  Returns the max abs difference and
+    the kernel's outputs."""
+    got = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
+                                        bank_prefix=True)
+    ref = compositing.fused_forward(g, mask, ntx, TS, NEAR, tile_chunk=256,
+                                    bank_prefix=True)
+    for name, a, b in zip(("out_v", "alpha", "depth_acc", "median", "",
+                           "prefix"), got, ref):
+        if name:
+            torch.testing.assert_close(a, b, msg=f"composite {name}", **TOL)
     hit = got[1] > 0
     say(f"  composite V={g.shape[2] - 9}: med_idx differs from the plain "
         f"version at {int((got[4] != ref[4])[hit].sum())} of "
-        f"{int(hit.sum())} covered pixels")
-    return max(float((a - b).abs().max()) for a, b in zip(got[:4], ref))
+        f"{int(hit.sum())} covered pixels; banked prefix max abs err "
+        f"{float((got[5] - ref[5]).abs().max()):.3g}")
+    err = max(float((a - b).abs().max())
+              for i, (a, b) in enumerate(zip(got, ref)) if i != 4)
+    return err, got
+
+
+def bwd_inputs(g, mask, ntx, fwd, seed):
+    """The backward kernel's arguments for the forward outputs ``fwd``
+    (banked), with seeded normal cotangents."""
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    t, p, v = g.shape[0], TS * TS, g.shape[2] - 9
+    cots = [torch.randn((t, p, v), generator=gen, device=g.device)] + [
+        torch.randn((t, p), generator=gen, device=g.device)
+        for _ in range(3)]
+    return (g, mask, fwd[5], *cots, fwd[4], 1.0 - fwd[1], ntx, TS, NEAR)
+
+
+# d_g's column groups (ops/rasterize.py::pack_per_gauss): each is held to
+# the gradient tolerance scaled by its own max |ref|, since their scales
+# differ by orders of magnitude.
+DG_GROUPS = (("mean", 0, 2), ("conic", 2, 5), ("depth, plane", 5, 8),
+             ("opacity", 8, 9), ("vals", 9, None))
+
+
+def check_composite_bwd(g, mask, ntx, fwd, seed) -> float:
+    """The backward kernel against the plain backward within the gradient
+    tolerance for each column group, exactly 0 at masked slots, and the
+    same bits on a second launch.  Returns the max abs difference."""
+    args = bwd_inputs(g, mask, ntx, fwd, seed)
+    got = batched.composite_batched_bwd(*args)
+    again = batched.composite_batched_bwd(*args)
+    ref = compositing.fused_backward(g, mask, args[7], args[8], *args[3:7],
+                                     ntx, TS, NEAR)
+    err = max(assert_grad_close(
+        got[..., a:b], ref[..., a:b],
+        f"composite_bwd V={g.shape[2] - 9} d_g[{name}]")
+        for name, a, b in DG_GROUPS)
+    if not torch.equal(got, again):
+        raise AssertionError("composite_bwd: two launches differ")
+    if bool((mask == 0).any()) and float(got[mask == 0].abs().max()) != 0:
+        raise AssertionError("composite_bwd: nonzero gradient at a masked "
+                             "slot")
+    return err
+
+
+def segsum_inputs(bins, n, d, seed):
+    """The expand_rows backward's sorted ids, permutation and seeded normal
+    cotangent rows [T * K, d] for the windows ``bins`` over ``n``
+    Gaussians."""
+    idx = segsum.spread_masked(bins.tile_gauss.reshape(-1),
+                               bins.tile_mask.reshape(-1), n)
+    gen = torch.Generator(device=idx.device).manual_seed(seed)
+    rows = torch.randn((idx.shape[0], d), generator=gen, device=idx.device)
+    sorted_ids, order = torch.sort(idx, stable=True)
+    return idx, sorted_ids, order, rows
+
+
+def close_1e6(got, ref, what) -> float:
+    """Exact sums on both sides: rtol 1e-6 and atol 1e-6 * max |ref|."""
+    torch.testing.assert_close(got, ref, rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()), msg=what)
+    return float((got - ref).abs().max())
+
+
+def check_segsum_rows(sorted_ids, order, rows, n, what) -> float:
+    """The segment-sum kernel against its plain version and the same bits
+    on a second launch."""
+    got = segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n)
+    again = segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n)
+    ref = segsum_kernel.segment_sum_plain(sorted_ids, order, rows, n)
+    if not torch.equal(got, again):
+        raise AssertionError(f"segment_sum {what}: two launches differ")
+    return close_1e6(got, ref, f"segment_sum {what}")
+
+
+def check_segsum(bins, n, d=15) -> float:
+    _, sorted_ids, order, rows = segsum_inputs(bins, n, d, seed=5)
+    return check_segsum_rows(sorted_ids, order, rows, n, f"D={d}")
+
+
+def check_segsum_step(tr) -> float:
+    """Kernel 4 at the train step's own shapes, on the trainer's current
+    state (N = its capacity), for both of the step's launches: the
+    expand_rows backward (seeded normal rows, D = 15) and update_state (the
+    masked |sink gradient| rows of one real backward, D = 2).  Each is held
+    against the plain version with a bit-identical repeat, and
+    update_state's statistics against the same statistics from the plain
+    sums (rtol 1e-6)."""
+    cfg = tr.config.model
+    cam, alive, st = tr.cameras[0], tr.alive, tr.strat_state
+    n = alive.shape[0]
+    sink = torch.zeros(rasterize.absgrad_sink_shape(
+        cam.width, cam.height, n, cfg.render), device=alive.device,
+        requires_grad=True)
+    out, meta = rade_gs.get_outputs(tr.params, alive, cam, tr.step, cfg,
+                                    training=True, compute_error_maps=True,
+                                    absgrad_sink=sink)
+    loss, _ = rade_gs.get_loss(out, tr.images[0], tr.params, alive, tr.step,
+                               cfg, reg_active=True)
+    (sink_grad,) = torch.autograd.grad(loss, [sink])
+    _, sorted_ids, order, rows15 = segsum_inputs(meta.bins, n, 15, seed=8)
+    mask = meta.bins.tile_mask.reshape(-1)
+    rows2 = torch.where(mask[:, None], sink_grad.abs().reshape(-1, 2),
+                        torch.zeros((), device=alive.device))
+    err = max(check_segsum_rows(sorted_ids, order, rows15, n, "D=15"),
+              check_segsum_rows(sorted_ids, order, rows2, n, "D=2"))
+    got = strategy.update_state(st, meta, sink_grad)
+    again = strategy.update_state(st, meta, sink_grad)
+    ref = strategy._accumulate(st, meta, segsum_kernel.segment_sum_plain(
+        sorted_ids, order, rows2, n))
+    for name, a, b, r in zip(strategy.StrategyState._fields, got, again, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"update_state {name}: two calls differ")
+        err = max(err, close_1e6(a, r, f"update_state {name}"))
+    say(f"parity train step: segment_sum at N={n}, M={rows2.shape[0]} "
+        f"(D=15 expand_rows rows, D=2 |sink gradient| rows of step "
+        f"{tr.step}) and update_state against the plain sums: max abs err "
+        f"{err:.3g}, repeats bit-identical")
+    return err
 
 
 def parity(name, scene):
@@ -184,15 +336,19 @@ def parity(name, scene):
     params, alive, cams, cfg = scene
     plans, g19, mask, ntx = kernel_inputs(params, alive, cams[0], cfg)
     g6 = g19[..., :15].contiguous()
+    (e6, f6), (e19, f19) = (check_composite(g, mask, ntx) for g in (g6, g19))
     errs = {
         "decode": max(check_decode(p) for p in plans.values()),
-        "composite": max(check_composite(g6, mask, ntx),
-                         check_composite(g19, mask, ntx)),
+        "composite": max(e6, e19),
+        "composite_bwd": max(check_composite_bwd(g6, mask, ntx, f6, 1),
+                             check_composite_bwd(g19, mask, ntx, f19, 2)),
     }
     say(f"parity {name}: decode bit-exact with exact and quantized ranks "
         f"({plans[True].m_cap} slots); composite max abs err "
-        f"{errs['composite']:.3g} at V=6 and V=19 (T={g6.shape[0]}, "
-        f"K={g6.shape[1]})")
+        f"{errs['composite']:.3g} (outputs and banked prefix), "
+        f"composite_bwd max abs err {errs['composite_bwd']:.3g} (gradient "
+        f"tolerance, masked slots 0, repeat bit-identical) at V=6 and V=19 "
+        f"(T={g6.shape[0]}, K={g6.shape[1]})")
     return plans[cfg.render.exact_binning], g6, mask, ntx, errs
 
 
@@ -219,6 +375,22 @@ def decode_bound(plan):
     return bound(nbytes, 60 * live if d.cull is not None else 0)
 
 
+def live_pairs(g, mask, ntx) -> int:
+    """(pixel, window slot) pairs whose alpha passes the cutoff."""
+    live = 0
+    for s in range(0, g.shape[0], 64):
+        gg = g[s:s + 64]
+        up, vp = compositing.pixel_centers(
+            torch.arange(s, s + gg.shape[0], device=g.device), ntx, TS)
+        alpha = compositing.splat_alpha(
+            up[:, :, None] - gg[:, None, :, 0],
+            vp[:, :, None] - gg[:, None, :, 1],
+            gg[:, None, :, 2:5], gg[:, None, :, 8],
+            mask[s:s + 64, None, :] > 0)
+        live += int((alpha > 0).sum())
+    return live
+
+
 def composite_bound(g, mask, ntx):
     """Bytes: the window rows and the mask read once, the maps written
     once.  Operations, counted on this run's data: 23 float32 operations of
@@ -229,23 +401,36 @@ def composite_bound(g, mask, ntx):
     v = d - 9
     nbytes = 4 * (t * k * d + t * k + t * TS * TS * (v + 4))
     masked = TS * TS * float(mask.sum())
-    live = 0
-    for s in range(0, t, 64):
-        gg = g[s:s + 64]
-        up, vp = compositing.pixel_centers(
-            torch.arange(s, s + gg.shape[0], device=g.device), ntx, TS)
-        alpha = compositing.splat_alpha(
-            up[:, :, None] - gg[:, None, :, 0],
-            vp[:, :, None] - gg[:, None, :, 1],
-            gg[:, None, :, 2:5], gg[:, None, :, 8],
-            mask[s:s + 64, None, :] > 0)
-        live += int((alpha > 0).sum())
-    return bound(nbytes, 23 * masked + (11 + 2 * v) * live)
+    return bound(nbytes, 23 * masked + (11 + 2 * v) * live_pairs(g, mask, ntx))
 
 
-def layer_times(params, alive, cam, cfg):
-    """Median ms of each layer of one render, called in the order
-    ``ops/rasterize.py::render_tiled`` calls them."""
+def composite_bwd_bound(g, mask, ntx):
+    """Bytes: the window rows, mask and banked prefix, the four cotangents,
+    the median slot and T_total read once, d_g written once.  Operations,
+    counted on this run's data: the 23 float32 operations of alpha and
+    depth once per (pixel, live window slot) pair, and 37 + 4V more per
+    pair whose alpha passes the cutoff: the transmittance (exp, log1p),
+    r (V FMAs), d_alpha, d_tpix and d_sigma, the 9 + V products and the
+    9 + V adds of the per-slot pixel sums."""
+    t, k, d = g.shape
+    v = d - 9
+    p = TS * TS
+    nbytes = 4 * (2 * t * k * d + t * k + -(-k // 64) * t * p
+                  + t * p * (v + 5))
+    masked = p * float(mask.sum())
+    return bound(nbytes, 23 * masked + (37 + 4 * v) * live_pairs(g, mask, ntx))
+
+
+def segsum_bound(m, d, n):
+    """Bytes: the [M, d] float32 rows, the int32 sorted ids and the int64
+    permutation read once, the [n, d] sums written once; one add per input
+    element."""
+    return bound(4 * m * d + 12 * m + 4 * n * d, m * d)
+
+
+def layer_times(params, alive, cam, cfg, step=0):
+    """Median ms of each layer of one render at ``step``, called in the
+    order ``ops/rasterize.py::render_tiled`` calls them."""
     opts = cfg.render
     opac = gaussians.activated_opacity(params, alive)
     scales = gaussians.activated_scales(params)
@@ -261,7 +446,7 @@ def layer_times(params, alive, cam, cfg):
 
     proj = project()
     op = opac * proj.compensation
-    colors = rade_gs.compute_colors(params, cam, 0, cfg)
+    colors = rade_gs.compute_colors(params, cam, step, cfg)
     plan = tiles.plan_bins(proj, cam.width, cam.height, opts, op)
     key, gid = binning_kernel.decode_bin_keys(*decode_args(plan))
     sorted_key, order = torch.sort(key, stable=True)
@@ -278,7 +463,7 @@ def layer_times(params, alive, cam, cfg):
     mask = bins.tile_mask.to(torch.float32)
     return {
         "colors": median_ms(
-            lambda: rade_gs.compute_colors(params, cam, 0, cfg)),
+            lambda: rade_gs.compute_colors(params, cam, step, cfg)),
         "projection": median_ms(project),
         "bin plan": median_ms(
             lambda: tiles.plan_bins(proj, cam.width, cam.height, opts, op)),
@@ -325,6 +510,295 @@ def reference_check(dev):
         f"(plain versions): max abs err {err:.3g}")
 
 
+def train_reference_check(dev):
+    """One train step's loss and gradients on the card (kernels) against
+    the same step on the CPU (plain versions), within the gradient
+    tolerance: 3000 Gaussians at 128x96, sh_degree 3 with every band live,
+    the depth-normal loss on."""
+    params, alive, cams, _ = make_scene("flagship", dev, n=3000, width=128,
+                                        height=96, sh_degree=3)
+    cfg = rade_gs.RadeGSConfig(
+        sh_degree=3, sh_degree_interval=1, background="black",
+        render=RenderOptions(rasterize_mode="antialiased"))
+    image = torch.rand((96, 128, 3),
+                       generator=torch.Generator().manual_seed(4))
+
+    def step(device):
+        cam = dataclasses.replace(cams[0], K=cams[0].K.to(device),
+                                  c2w=cams[0].c2w.to(device))
+        p = {k: v.detach().to(device).requires_grad_(True)
+             for k, v in params.items()}
+        al = alive.to(device)
+        sink = torch.zeros(rasterize.absgrad_sink_shape(
+            128, 96, al.shape[0], cfg.render), device=device,
+            requires_grad=True)
+        out, _ = rade_gs.get_outputs(p, al, cam, 3, cfg, training=True,
+                                     compute_error_maps=True,
+                                     absgrad_sink=sink)
+        loss, _ = rade_gs.get_loss(out, image.to(device), p, al, 3, cfg,
+                                   reg_active=True)
+        grads = torch.autograd.grad(loss, list(p.values()) + [sink])
+        return loss.detach().cpu(), [x.cpu() for x in grads]
+
+    (loss, grads), (ref_loss, ref_grads) = step(dev), step("cpu")
+    torch.testing.assert_close(loss, ref_loss, **TOL)
+    err = max(assert_grad_close(a, b, f"card vs CPU gradient {name}")
+              for a, b, name in zip(grads, ref_grads,
+                                    list(params) + ["sink"]))
+    say(f"reference: one train step, 3000 Gaussians at 128x96, card "
+        f"(kernels) vs CPU (plain versions): loss {float(loss):.6f} vs "
+        f"{float(ref_loss):.6f}, gradients of {len(grads)} tensors within "
+        f"the gradient tolerance (max abs err {err:.3g})")
+
+
+def training_setup(dev):
+    """A trainer on the bench scene at full width: the ground truth is the
+    bench scene with sh_degree 3 (every band live from step 3), its renders
+    on four orbit cameras are the images, and training starts from a
+    perturbed copy (means, colours; 5% of the rows five times larger and 5%
+    faint, so that the refine pass splits and culls)."""
+    params, alive, cams, cfg = make_scene("bench", dev, sh_degree=3)
+    model = rade_gs.RadeGSConfig(
+        sh_degree=3, sh_degree_interval=1, background="random",
+        render=cfg.render, regularization_from_iter=REG_FROM)
+    with torch.no_grad():
+        images = [rade_gs.get_outputs(params, alive, c, 3, model,
+                                      training=False)[0]["rgb"]
+                  for c in cams]
+    n = alive.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    init = dict(params)
+    init["means"] = params["means"] + 0.002 * torch.randn(
+        (n, 3), generator=gen, device=dev)
+    init["features_dc"] = params["features_dc"] + 0.3 * torch.randn(
+        (n, 3), generator=gen, device=dev)
+    pick = torch.rand((n, 1), generator=gen, device=dev)
+    init["scales"] = torch.where(pick < 0.05, params["scales"] + math.log(5),
+                                 params["scales"])
+    init["opacities"] = torch.where(
+        pick > 0.95, torch.full_like(params["opacities"],
+                                     math.log(0.05 / 0.95)),
+        params["opacities"])
+    cap = n + (1 << 18)
+    init = gaussians.pad_to_capacity(init, cap)
+    conf = TrainerConfig(
+        model=model, max_iterations=1000, seed=0,
+        strategy=strategy.StrategyConfig(warmup_length=4,
+                                         refine_every=REFINE_EVERY))
+    return Trainer(conf, cams, images, init,
+                   torch.arange(cap, device=dev) < n, device=dev)
+
+
+def counts():
+    return {"decode": binning_kernel.launches, "composite": batched.launches,
+            "composite_bwd": batched.bwd_launches,
+            "segment_sum": segsum_kernel.launches}
+
+
+def train_main_path(tr):
+    """The training main path: TRAIN_STEPS steps with every launch count at
+    0 just before and read just after.  Returns (history, host ms per step,
+    launches)."""
+    scfg = tr.config.strategy
+    reset_at = scfg.refine_every
+    refine_at = 2 * scfg.refine_every
+    logit_cap = math.log(0.2 / 0.8)
+    hist, ms = [], []
+    binning_kernel.launches = 0
+    batched.launches = batched.bwd_launches = 0
+    segsum_kernel.launches = 0
+    for _ in range(TRAIN_STEPS):
+        if tr.step == refine_at - 1:
+            # The reference threshold is in the NDC units of real captures;
+            # on this random scene the refine pass densifies the 1% of
+            # rows with the largest mean gradient instead.
+            st = tr.strat_state
+            seen = tr.alive & (st.count > 0)
+            avg = (st.grad_accum / torch.clamp(st.count, min=1.0))[seen]
+            thresh = float(torch.quantile(avg, 0.99))
+            tr.config = dataclasses.replace(tr.config, strategy=(
+                dataclasses.replace(scfg, densify_grad_thresh=thresh)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist.append(tr.train_one_step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if tr.step == reset_at:
+            top = float(tr.params["opacities"].detach()[tr.alive].max())
+            if top > logit_cap + 1e-6:
+                raise AssertionError(f"opacity reset: max logit {top}")
+    launches = counts()
+    return hist, ms, launches
+
+
+def check_training(hist, launches, refine_at):
+    steps = len(hist)
+    for i, h in enumerate(hist):
+        if not math.isfinite(h["loss"]) or h["nonfinite_grad"] != 0:
+            raise AssertionError(f"train step {i}: {h}")
+        if ("depth_normal_loss" in h) != (i >= REG_FROM):
+            raise AssertionError(f"train step {i}: depth-normal phase")
+    want = {"decode": steps, "composite": steps, "composite_bwd": steps,
+            "segment_sum": 2 * steps}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{want} in {steps} steps")
+    ref = hist[refine_at - 1]
+    if not all(ref.get(k, 0) > 0 for k in ("refine_dup", "refine_split",
+                                            "refine_cull")):
+        raise AssertionError(f"refine pass: {ref}")
+
+
+def check_determinism(tr):
+    """One step run twice from the same state: the parameters, the Adam
+    moments and the statistics must come out the same bits."""
+    snap = tr.state()
+
+    def run():
+        tr.train_one_step()
+        s = tr.state()
+        moments = [v for st in s["optimizer"]["state"].values()
+                   for k, v in sorted(st.items()) if k != "step"]
+        return [*s["params"].values(), *s["strat_state"], *moments]
+
+    a = run()
+    tr.load_state(snap)
+    b = run()
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    if not same:
+        tr.load_state(snap)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        tr.train_one_step()
+        torch.use_deterministic_algorithms(False)
+        raise AssertionError("a repeated train step gave other bits (the "
+                             "warnings above name the ops PyTorch knows "
+                             "to be nondeterministic)")
+    say(f"determinism: step {snap['step']} run twice from the same state "
+        f"gave bit-identical parameters ({len(snap['params'])} tensors), "
+        f"Adam moments and statistics")
+
+
+def refine_times(tr):
+    """Host-clock ms of the refine pass alone on the trainer's state (its
+    result is dropped): the dense capacity-wide work and the split noise
+    drawn on the card."""
+    scfg = tr.config.strategy
+
+    def run():
+        return strategy.refine(
+            tr.params, tr.alive, tr.strat_state, scfg,
+            generator=torch.Generator(device=tr.device).manual_seed(0),
+            scene_scale=tr.config.scene_scale, screen_size_cull=True)
+
+    return timings(run, host_clock=True)
+
+
+def fitting_run(dev):
+    """Fit the flagship scene from a perturbed copy (means jittered,
+    colours reset, as tests/test_training.py does) for FIT_STEPS steps;
+    PSNR on a training camera must rise by 3 dB."""
+    params, alive, _, cfg = make_scene("flagship", dev)
+    cams = synthetic.orbit_cameras(4, radius=3.0, width=512, height=512,
+                                   focal=1.2 * 512, device=dev)
+    model = dataclasses.replace(cfg, use_depth_normal_loss=False)
+    with torch.no_grad():
+        images = [rade_gs.get_outputs(params, alive, c, 0, model,
+                                      training=False)[0]["rgb"]
+                  for c in cams]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    init = dict(params)
+    init["means"] = params["means"] + 0.02 * torch.randn(
+        params["means"].shape, generator=gen, device=dev)
+    init["features_dc"] = torch.zeros_like(params["features_dc"])
+    tr = Trainer(TrainerConfig(
+        model=model, max_iterations=FIT_STEPS,
+        strategy=strategy.StrategyConfig(warmup_length=10 ** 7)),
+        cams, images, init, alive, device=dev)
+    t0 = time.perf_counter()
+    first = tr.train_one_step()
+    for _ in range(FIT_STEPS - 1):
+        last = tr.train_one_step()
+    seconds = time.perf_counter() - t0
+    ev = tr.eval_image(cams[0], images[0])
+    say(f"fitting run: flagship scene (20,000 Gaussians, 512x512, 4 "
+        f"cameras), {FIT_STEPS} steps in {seconds:.1f} s: PSNR "
+        f"{first['psnr']:.2f} dB at the first step, {ev['psnr']:.2f} dB on "
+        f"camera 0 after (SSIM {ev['ssim']:.4f}), last loss "
+        f"{last['loss']:.5f}")
+    if not ev["psnr"] > first["psnr"] + 3.0:
+        raise AssertionError("fitting run: PSNR rose by less than 3 dB")
+
+
+def train_layer_times(tr):
+    """Card time of each layer of one train step on camera 0 (median of
+    REPS CUDA-event timings), and the kernels' inputs at the step's
+    shapes."""
+    cfg = tr.config.model
+    params, alive, cam, image = tr.params, tr.alive, tr.cameras[0], \
+        tr.images[0]
+    leaves = list(params.values())
+    sink = torch.zeros(rasterize.absgrad_sink_shape(
+        cam.width, cam.height, alive.shape[0], cfg.render),
+        device=cam.K.device, requires_grad=True)
+
+    def forward():
+        return rade_gs.get_outputs(
+            params, alive, cam, tr.step, cfg,
+            generator=torch.Generator().manual_seed(0), training=True,
+            compute_error_maps=True, absgrad_sink=sink)
+
+    outputs, meta = forward()
+
+    def loss_fn():
+        return rade_gs.get_loss(outputs, image, params, alive, tr.step, cfg,
+                                reg_active=True)[0]
+
+    loss = loss_fn()
+    grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True)
+    out = {
+        "forward (render, error maps)": median_ms(forward),
+        **{f"forward: {k}": v for k, v in layer_times(
+            params, alive, cam, cfg, tr.step).items()},
+        "loss": median_ms(loss_fn),
+        "backward (autograd.grad)": median_ms(lambda: torch.autograd.grad(
+            loss, leaves + [sink], retain_graph=True)),
+    }
+    # The kernels of the backward, alone, on the step's windows.
+    opac = gaussians.activated_opacity(params, alive).detach()
+    proj = meta.proj
+    if cfg.render.rasterize_mode == "antialiased":
+        opac = opac * proj.compensation.detach()
+    colors = rade_gs.compute_colors(params, cam, tr.step, cfg).detach()
+    g = rasterize.window_rows(meta.bins, rasterize.pack_per_gauss(
+        type(proj)(*(x.detach() for x in proj)), opac, proj.normal.detach(),
+        colors))
+    mask = meta.bins.tile_mask.to(torch.float32)
+    ntx = meta.bins.num_tiles_x
+    fwd = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
+                                        bank_prefix=True)
+    bargs = bwd_inputs(g, mask, ntx, fwd, seed=6)
+    out["composite_bwd kernel"] = median_ms(
+        lambda: batched.composite_batched_bwd(*bargs))
+    n = alive.shape[0]
+    idx, sorted_ids, order, rows = segsum_inputs(meta.bins, n, g.shape[2], 7)
+    out["segment-sum sort"] = median_ms(lambda: torch.sort(idx, stable=True))
+    out["segment_sum kernel"] = median_ms(
+        lambda: segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n))
+    out["rest of the backward"] = (out["backward (autograd.grad)"]
+                                   - out["composite_bwd kernel"]
+                                   - out["segment-sum sort"]
+                                   - out["segment_sum kernel"])
+    out["statistics (update_state)"] = median_ms(
+        lambda: strategy.update_state(tr.strat_state, meta, grads[-1]))
+    for p, gr in zip(leaves, grads):
+        p.grad = gr
+    out["Adam"] = median_ms(tr.optimizer.step)   # moves the parameters
+    tr.optimizer.zero_grad(set_to_none=True)
+    kernels = {"g": g, "mask": mask, "ntx": ntx, "bwd_args": bargs,
+               "segsum_args": (sorted_ids, order, rows, n), "idx": idx}
+    return out, kernels
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -333,6 +807,7 @@ def main() -> int:
     CARD = card_line()
     print(f"card: {CARD}", flush=True)
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -346,22 +821,31 @@ def main() -> int:
     scenes = {"flagship": make_scene("flagship", dev),
               "bench": make_scene("bench", dev)}
     inputs = {name: parity(name, sc) for name, sc in scenes.items()}
+    seg_err = check_segsum(
+        render(*scenes["bench"][:2], scenes["bench"][2][0],
+               scenes["bench"][3])[1].bins, scenes["bench"][1].shape[0])
+    say(f"parity bench: segment_sum max abs err {seg_err:.3g} against its "
+        f"plain version (M={3600 * 512}, D=15, N=1000000), repeat "
+        f"bit-identical")
     reference_check(dev)
+    train_reference_check(dev)
 
-    # The main path, with every launch count at 0 just before it.
+    # Main path 1, the forward render, with every launch count at 0 just
+    # before it.
     binning_kernel.launches = 0
     batched.launches = 0
     outs = {name: [render(p, a, cam, cfg)[0] for cam in cams]
             for name, (p, a, cams, cfg) in scenes.items()}
     torch.cuda.synchronize()
-    launches = {"decode": binning_kernel.launches,
-                "composite": batched.launches}
+    render_launches = {"decode": binning_kernel.launches,
+                       "composite": batched.launches}
     n_renders = sum(len(o) for o in outs.values())
-    for kernel, n in launches.items():
+    for kernel, n in render_launches.items():
         if n != n_renders:
             raise AssertionError(f"{kernel}: {n} launches in {n_renders} "
                                  "renders of the main path")
-    say(f"main path: {n_renders} renders, launches {launches}")
+    say(f"main path (render): {n_renders} renders, launches "
+        f"{render_launches}")
     for name, (params, _, cams, _) in scenes.items():
         for i, (out, cam) in enumerate(zip(outs[name], cams)):
             check_outputs(f"{name} camera {i}", out, cam)
@@ -371,6 +855,46 @@ def main() -> int:
         say(f"{name}: {len(cams)} camera(s) at {cams[0].width}x"
             f"{cams[0].height}, {params['means'].shape[0]} Gaussians: "
             f"spilled {spilled}, covered pixel share {cover}")
+    del outs
+
+    # The train step's layers and backward kernels, at the main path's
+    # shapes, on the trainer's first state (put back afterwards).
+    tr = training_setup(dev)
+    start = tr.state()
+    seg_errs = [check_segsum_step(tr)]
+    tr.step = 3   # every SH band live
+    tlayers, kin = train_layer_times(tr)
+    tr.load_state(start)
+
+    # Main path 2, the training step at the bench scene's width.
+    hist, step_ms, launches = train_main_path(tr)
+    refine_at = 2 * REFINE_EVERY
+    check_training(hist, launches, refine_at)
+    say(f"main path (training): {len(hist)} steps of the bench scene "
+        f"(1M Gaussians, 1280x720, sh_degree 3, random background), "
+        f"launches {launches}; losses "
+        + ", ".join(f"{h['loss']:.5f}" for h in hist)
+        + f"; PSNR {hist[0]['psnr']:.2f} -> {hist[-1]['psnr']:.2f} dB")
+    r = hist[refine_at - 1]
+    say(f"refine after step {refine_at}: dup {r['refine_dup']}, split "
+        f"{r['refine_split']}, cull {r['refine_cull']}, dropped "
+        f"{r['refine_dropped']}; Gaussians {r['num_gaussians']} -> "
+        f"{hist[-1]['num_gaussians']}, capacity {tr.alive.shape[0]}; "
+        f"opacity reset after step {REFINE_EVERY}; depth-normal loss from "
+        f"step {REG_FROM}")
+    say(f"train step (host clock, bench scene): median "
+        f"{statistics.median(step_ms):.4f} ms over {len(step_ms)} steps, min "
+        f"{min(step_ms):.4f}, max {max(step_ms):.4f}")
+    check_determinism(tr)
+    # Kernel 4 again at the grown capacity of the steps after the refine.
+    seg_errs.append(check_segsum_step(tr))
+    refine_ms = refine_times(tr)
+    say(f"refine pass alone (strategy.refine at capacity "
+        f"{tr.alive.shape[0]}, host clock, median of {REPS}): "
+        f"{statistics.median(refine_ms):.4f} ms, min {min(refine_ms):.4f}, "
+        f"max {max(refine_ms):.4f}; the train step that ran the refine took "
+        f"{step_ms[refine_at - 1]:.4f} ms (host clock)")
+    fitting_run(dev)
 
     records = {}
     for name, (params, alive, cams, cfg) in scenes.items():
@@ -384,6 +908,9 @@ def main() -> int:
             "composite_ms": median_ms(
                 lambda: batched.composite_batched_fwd(g, mask, ntx, TS,
                                                       NEAR)),
+            "composite_banked_ms": median_ms(
+                lambda: batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
+                                                      bank_prefix=True)),
             "composite_plain_ms": median_ms(
                 lambda: compositing.fused_forward(g, mask, ntx, TS, NEAR,
                                                   tile_chunk=256)),
@@ -404,7 +931,8 @@ def main() -> int:
             f"{rec['decode_ms']:.4f} ms, plain {rec['decode_plain_ms']:.4f} "
             f"ms, bound {rec['decode_bound'][0]:.4f} ms by "
             f"{rec['decode_bound'][1]}; composite kernel "
-            f"{rec['composite_ms']:.4f} ms, plain "
+            f"{rec['composite_ms']:.4f} ms ({rec['composite_banked_ms']:.4f} "
+            f"ms banking the prefix), plain "
             f"{rec['composite_plain_ms']:.4f} ms, bound "
             f"{rec['composite_bound'][0]:.4f} ms by "
             f"{rec['composite_bound'][1]}")
@@ -413,24 +941,66 @@ def main() -> int:
             f"cameras): median {statistics.median(r):.4f} ms per camera, "
             f"min {min(r):.4f}, max {max(r):.4f}")
 
-    # The kernels line, at the bench scene's shapes (the full-size path).
+    say(f"layers of the train step, bench scene camera 0 (median of {REPS}, "
+        f"ms): " + ", ".join(f"{k} {v:.4f}" for k, v in tlayers.items()))
+    bargs, sargs = kin["bwd_args"], kin["segsum_args"]
+    m, d = sargs[2].shape
     b = records["bench"]
+    b.update({
+        "composite_bwd_ms": tlayers["composite_bwd kernel"],
+        "composite_bwd_plain_ms": median_ms(
+            lambda: compositing.fused_backward(
+                bargs[0], bargs[1], bargs[7], bargs[8], *bargs[3:7],
+                kin["ntx"], TS, NEAR),
+            reps=PLAIN_REPS),
+        "composite_bwd_bound": composite_bwd_bound(kin["g"], kin["mask"],
+                                                   kin["ntx"]),
+        "segment_sum_ms": tlayers["segment_sum kernel"],
+        "segment_sum_plain_ms": median_ms(
+            lambda: segsum_kernel.segment_sum_plain(*sargs)),
+        "segment_sum_library_ms": median_ms(
+            lambda: torch.zeros((sargs[3], d), device=dev).index_add_(
+                0, kin["idx"].long(), sargs[2])),
+        "segment_sum_bound": segsum_bound(m, d, sargs[3]),
+    })
+    say(f"time train step kernels (bench scene, median of {REPS}; plain "
+        f"backward of {PLAIN_REPS}): composite_bwd kernel "
+        f"{b['composite_bwd_ms']:.4f} ms, plain "
+        f"{b['composite_bwd_plain_ms']:.4f} ms, bound "
+        f"{b['composite_bwd_bound'][0]:.4f} ms by "
+        f"{b['composite_bwd_bound'][1]}; segment_sum kernel "
+        f"{b['segment_sum_ms']:.4f} ms, plain "
+        f"{b['segment_sum_plain_ms']:.4f} ms, index_add_ "
+        f"{b['segment_sum_library_ms']:.4f} ms, bound "
+        f"{b['segment_sum_bound'][0]:.4f} ms by {b['segment_sum_bound'][1]} "
+        f"(M={m}, D={d}, N={sargs[3]})")
+
+    # The kernels line, at the bench scene's shapes (the full-size paths);
+    # launches from the training main path, which runs all four.
     kernels = []
-    for key, name, src, tpu in (
+    for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",
-             "binning_kernel.py:172"),
+             "binning_kernel.py:172", None),
             ("composite", "composite_batched_fwd", "batched_fwd.cu",
-             "batched.py:176")):
+             "batched.py:176", None),
+            ("composite_bwd", "composite_batched_bwd", "batched_bwd.cu",
+             "batched_bwd.py:187", None),
+            ("segment_sum", "segment_sum_sorted", "segsum_kernel.cu",
+             "segsum_kernel.py:99", "segment_sum_library_ms")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"collab_splats_tpu_torch/csrc/{src}",
             "replaces": f"collab_splats_tpu/ops/pallas/{tpu}",
             "launches": launches[key],
-            "max_abs_err": max(r["errs"][key] for r in records.values()),
+            "max_abs_err": (max(seg_err, *seg_errs) if key == "segment_sum"
+                            else max(r["errs"][key]
+                                     for r in records.values())),
             "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],
             "bound_ms": b[f"{key}_bound"][0],
-            "bound_by": b[f"{key}_bound"][1], "library_ms": None,
+            "bound_by": b[f"{key}_bound"][1],
+            "library_ms": b[lib] if lib else None,
         })
+    say(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(f"card: {CARD}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
-"""PyTorch + CUDA port of ``collab_splats_tpu``: the RaDe-GS forward render.
+"""PyTorch + CUDA port of ``collab_splats_tpu``: the RaDe-GS forward render
+and training step.
 
 The layout mirrors the JAX package (``core/``, ``ops/``, ``models/``,
-``data/``) so every module has a counterpart of the same name.  The port
-imports ``torch`` and ``numpy`` only: nothing of JAX and nothing of the JAX
-package.  The two hand-written Hopper kernels live in ``csrc/`` and are
-bound by ``ops/cuda/``; each has a plain PyTorch version beside it that the
-wrappers use for tensors on the CPU only.
+``train/``, ``data/``) so every module has a counterpart of the same name.
+The port imports ``torch`` and ``numpy`` only: nothing of JAX and nothing
+of the JAX package.  The hand-written Hopper kernels live in ``csrc/`` and
+are bound by ``ops/cuda/``; each has a plain PyTorch version beside it that
+the wrappers use for tensors on the CPU only.
 
 Precision: the JAX package pins ``Precision.HIGHEST`` on its geometry and
 compositing contractions (core/projection.py, core/compositing.py) because
@@ -18,3 +19,9 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+# The JAX trainer resumes bit for bit because its reductions are
+# deterministic; the port's kernels use no float atomics, and cuDNN (the
+# SSIM filters) is held to deterministic algorithms too.
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False

@@ -1,4 +1,5 @@
-"""Pinhole cameras and the OpenGL -> COLMAP convention change.
+"""Pinhole cameras, the OpenGL -> COLMAP convention change, and normal
+maps from depth maps (the RaDe-GS depth-normal consistency loss).
 
 Counterpart of the JAX package's ``core/cameras.py``.  A camera is a plain
 dataclass holding two tensors; ``width`` and ``height`` are Python ints.
@@ -102,3 +103,46 @@ def opengl_c2w_to_colmap_w2c(c2w_gl: torch.Tensor) -> torch.Tensor:
     w2c[:3, 3] = -(R_inv @ t)
     w2c[3, 3] = 1.0
     return w2c
+
+
+def pixel_centers(width: int, height: int, device=None):
+    """Pixel-centre coordinate grids ``(u, v)``, each [H, W]."""
+    u = torch.arange(width, dtype=torch.float32, device=device) + 0.5
+    v = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    return (u[None, :].expand(height, width),
+            v[:, None].expand(height, width))
+
+
+def camera_rays(camera: Camera) -> torch.Tensor:
+    """Per-pixel camera-space ray directions ``K^-1 (u, v, 1)``, [H, W, 3],
+    with z = 1 so that ``depth * ray`` is the point at that z-depth."""
+    u, v = pixel_centers(camera.width, camera.height, camera.K.device)
+    x = (u - camera.cx) / camera.fx
+    y = (v - camera.cy) / camera.fy
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def depth_to_points(camera: Camera, depth: torch.Tensor) -> torch.Tensor:
+    """Back-project a z-depth map [H, W] to camera-space points [H, W, 3]."""
+    depth = depth.reshape(camera.height, camera.width)
+    return camera_rays(camera) * depth[..., None]
+
+
+def points_to_normal(points: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normals from camera-space points [H, W, 3] by central differences:
+    the derivative along the rows crossed with the one along the columns,
+    normalized; the one-pixel border is zero."""
+    d_row = points[2:, 1:-1, :] - points[:-2, 1:-1, :]
+    d_col = points[1:-1, 2:, :] - points[1:-1, :-2, :]
+    n = torch.linalg.cross(d_row, d_col, dim=-1)
+    n = n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True) + eps)
+    return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+def depth_pair_to_normal(camera: Camera, depth1: torch.Tensor,
+                         depth2: torch.Tensor) -> torch.Tensor:
+    """Normal maps of two depth maps, stacked [2, H, W, 3]: index 0 from
+    ``depth1`` (expected depth), index 1 from ``depth2`` (median depth)."""
+    n1 = points_to_normal(depth_to_points(camera, depth1))
+    n2 = points_to_normal(depth_to_points(camera, depth2))
+    return torch.stack([n1, n2], dim=0)

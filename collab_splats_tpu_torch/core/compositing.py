@@ -1,22 +1,27 @@
 """Depth-ordered alpha compositing: the plain version of the compositor.
 
-Counterpart of the JAX package's ``core/compositing.py``.  This slice ports
-the forward of the fused compositor (``_fused_fwd_common`` +
-``_fused_outputs``): for every (tile, pixel) and every slot of the tile's
-front-to-back window it evaluates the splat's alpha, the transmittance in
-front of it, its compositing weight, and reduces the value channels, the
-expected depth and the median depth.
+Counterpart of the JAX package's ``core/compositing.py``: the fused
+compositor (``_fused_fwd_common`` + ``_fused_outputs``) and its analytic
+backward (``fused_bwd_from_g`` + ``moments_to_dg``).  For every (tile,
+pixel) and every slot of the tile's front-to-back window the forward
+evaluates the splat's alpha, the transmittance in front of it, its
+compositing weight, and reduces the value channels, the expected depth and
+the median depth; the backward walks the same chain back to front and
+reduces the pixel cotangents to one gradient row per (tile, slot).
 
-:func:`fused_forward` is the plain PyTorch version of the CUDA kernel in
-``csrc/batched_fwd.cu`` (wrapper ``ops/cuda/batched.py``).  It runs dense
+:func:`fused_forward` and :func:`fused_backward` are the plain PyTorch
+versions of the CUDA kernels in ``csrc/batched_fwd.cu`` and
+``csrc/batched_bwd.cu`` (wrapper ``ops/cuda/batched.py``).  They run dense
 [tiles, 256, K] tensors, chunked over tiles so memory stays bounded, except
 for the log-transmittance scan, which runs slot by slot: its float32 sums
-then round exactly as the kernel's running carry does, so the median
+then round exactly as the kernels' running carry does, so the median
 selection (the first slot whose accumulated opacity crosses 1/2) agrees
 with the kernel bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +29,9 @@ import torch
 ALPHA_CUTOFF = 1.0 / 255.0   # contributions below this are skipped
 ALPHA_MAX = 0.999            # per-splat alpha is clamped to this
 LOG_HALF = -0.6931471805599453
+# Slots per batch of the compositing kernels; the forward banks its
+# log-transmittance carry in front of every batch for the backward.
+PREFIX_BATCH = 64
 
 # Column layout of the gathered per-splat rows g (== ops.rasterize PG_*):
 #   0 u, 1 v | 2 a, 3 b, 4 c (conic) | 5 depth | 6, 7 plane | 8 opacity |
@@ -57,7 +65,25 @@ def pixel_centers(tile_ids: torch.Tensor, ntx: int, ts: int):
     return up.to(torch.float32) + 0.5, vp.to(torch.float32) + 0.5
 
 
-def _fused_chunk(g, msk, up, vp, near_plane):
+class _Chain(NamedTuple):
+    """The forward chain of a [T, P, K] chunk, as the backward needs it."""
+
+    du: torch.Tensor
+    dv: torch.Tensor
+    sigma: torch.Tensor
+    alpha_raw: torch.Tensor   # opacity * exp(-clip(sigma, 0, 50))
+    keep: torch.Tensor        # live: masked in, sigma >= 0, alpha >= cutoff
+    alpha: torch.Tensor
+    log1m: torch.Tensor       # log1p(-alpha)
+    cum_excl: torch.Tensor    # log-transmittance in front of each slot
+    cum_incl: torch.Tensor    # ... and after it
+    carry: torch.Tensor       # [T, P] log-transmittance after the window
+    w: torch.Tensor           # alpha * T_excl
+    tpix_raw: torch.Tensor    # depth + plane . (du, dv)
+    tpix: torch.Tensor        # tpix_raw clamped to the near plane
+
+
+def _chain(g, msk, up, vp, near_plane) -> _Chain:
     k = g.shape[1]
     du = up[:, :, None] - g[:, None, :, 0]                      # [T, P, K]
     dv = vp[:, :, None] - g[:, None, :, 1]
@@ -65,8 +91,8 @@ def _fused_chunk(g, msk, up, vp, near_plane):
     b = g[:, None, :, 3]
     c = g[:, None, :, 4]
     sigma = 0.5 * (a * du * du + c * dv * dv) + b * du * dv
-    alpha = g[:, None, :, 8] * torch.exp(-torch.clamp(sigma, 0.0, 50.0))
-    alpha = torch.clamp(alpha, max=ALPHA_MAX)
+    alpha_raw = g[:, None, :, 8] * torch.exp(-torch.clamp(sigma, 0.0, 50.0))
+    alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
     keep = (msk[:, None, :] > 0) & (alpha >= ALPHA_CUTOFF) & (sigma >= 0.0)
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
     log1m = torch.log1p(-alpha)
@@ -81,28 +107,37 @@ def _fused_chunk(g, msk, up, vp, near_plane):
         carry = carry + log1m[..., j]
         cum_incl[..., j] = carry
     w = alpha * torch.exp(cum_excl)
-    tpix = torch.clamp(
-        g[:, None, :, 5] + g[:, None, :, 6] * du + g[:, None, :, 7] * dv,
-        min=near_plane,
-    )
+    tpix_raw = g[:, None, :, 5] + g[:, None, :, 6] * du + g[:, None, :, 7] * dv
+    tpix = torch.clamp(tpix_raw, min=near_plane)
+    return _Chain(du, dv, sigma, alpha_raw, keep, alpha, log1m, cum_excl,
+                  cum_incl, carry, w, tpix_raw, tpix)
 
-    out_v = torch.einsum("tpk,tkv->tpv", w, g[..., G_VALS:])
-    alpha_out = 1.0 - torch.exp(carry)
-    depth_acc = torch.sum(w * tpix, dim=-1)
+
+def _fused_chunk(g, msk, up, vp, near_plane, bank_prefix):
+    ch = _chain(g, msk, up, vp, near_plane)
+    k = g.shape[1]
+    out_v = torch.einsum("tpk,tkv->tpv", ch.w, g[..., G_VALS:])
+    alpha_out = 1.0 - torch.exp(ch.carry)
+    depth_acc = torch.sum(ch.w * ch.tpix, dim=-1)
     # Median: first live slot where the accumulated opacity crosses 1/2,
     # else the first max-weight slot -- one first-max over a single key.
-    crossed = (cum_incl <= LOG_HALF) & (alpha > 0.0)
+    crossed = (ch.cum_incl <= LOG_HALF) & (ch.alpha > 0.0)
     kk = torch.arange(k, device=g.device)
     rank_key = 2.0 + (k - kk).to(torch.float32) / k
-    med_key = torch.where(crossed, rank_key, w)
+    med_key = torch.where(crossed, rank_key, ch.w)
     idx = torch.argmax(med_key, dim=-1)
-    median = torch.gather(tpix, -1, idx[..., None])[..., 0]
+    median = torch.gather(ch.tpix, -1, idx[..., None])[..., 0]
     median = torch.where(alpha_out > 0.0, median, torch.zeros_like(median))
-    return out_v, alpha_out, depth_acc, median, idx.to(torch.int32)
+    out = (out_v, alpha_out, depth_acc, median, idx.to(torch.int32))
+    if bank_prefix:
+        # [NB, T, P]: the carry in front of each PREFIX_BATCH-slot batch.
+        out += (ch.cum_excl[..., ::PREFIX_BATCH].permute(2, 0, 1),)
+    return out
 
 
 def fused_forward(g: torch.Tensor, mask: torch.Tensor, ntx: int, ts: int,
-                  near_plane: float, tile_chunk: int = 64):
+                  near_plane: float, tile_chunk: int = 64,
+                  bank_prefix: bool = False):
     """Composite every tile's window front to back (plain version).
 
     Args:
@@ -113,19 +148,133 @@ def fused_forward(g: torch.Tensor, mask: torch.Tensor, ntx: int, ts: int,
         ts: tile size in pixels (P = ts * ts pixels per tile).
         near_plane: lower clamp of the per-pixel splat depth.
         tile_chunk: tiles per dense chunk.
+        bank_prefix: also return the residual of the backward kernel.
 
     Returns:
         (out_v [T, P, V], alpha [T, P], depth_acc [T, P], median [T, P],
         med_idx [T, P] int32): the composited value channels, the
         accumulated opacity, the unnormalized expected depth, the median
-        depth (0 where alpha is 0) and the window slot it came from.
+        depth (0 where alpha is 0) and the window slot it came from.  With
+        ``bank_prefix``, a sixth output ``prefix`` [ceil(K / 64), T, P]
+        float32: the log-transmittance in front of slot 64 b, for each
+        batch b, as the kernel carries it.
     """
     t = g.shape[0]
-    tile_ids = torch.arange(t, device=g.device)
-    up, vp = pixel_centers(tile_ids, ntx, ts)
+    up, vp = (x.to(g.dtype) for x in pixel_centers(
+        torch.arange(t, device=g.device), ntx, ts))
     parts = [
         _fused_chunk(g[s:s + tile_chunk], mask[s:s + tile_chunk],
-                     up[s:s + tile_chunk], vp[s:s + tile_chunk], near_plane)
+                     up[s:s + tile_chunk], vp[s:s + tile_chunk], near_plane,
+                     bank_prefix)
         for s in range(0, t, tile_chunk)
     ]
-    return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
+    outs = [torch.cat(xs, dim=0) for xs in zip(*(p[:5] for p in parts))]
+    if bank_prefix:
+        outs.append(torch.cat([p[5] for p in parts], dim=1))
+    return tuple(outs)
+
+
+def _backward_chunk(g, msk, up, vp, idx, t_total, g_v, g_alpha, g_depth,
+                    g_med, near_plane):
+    """``fused_bwd_from_g`` of the JAX package on one chunk of tiles."""
+    ch = _chain(g, msk, up, vp, near_plane)
+    k = g.shape[1]
+    # r_k = dL/dw_k; the exclusive suffix sum_{k > i} w_k r_k carries the
+    # back-to-front recurrence.
+    r = torch.einsum("tpv,tkv->tpk", g_v, g[..., G_VALS:]) \
+        + g_depth[..., None] * ch.tpix
+    s = ch.w * r
+    incl = torch.flip(torch.cumsum(torch.flip(s, [-1]), -1), [-1])
+    suffix = torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], -1)
+    inv1m = torch.exp(-ch.log1m)   # 1 / (1 - alpha); 1 at dead slots
+    t_excl = torch.exp(ch.cum_excl)
+    d_alpha = (t_excl * r - suffix * inv1m
+               + (g_alpha * t_total)[..., None] * inv1m)
+
+    # The median's depth flows to its slot (the selection is constant).
+    g_med = torch.where(t_total < 1.0, g_med, torch.zeros_like(g_med))
+    onehot = (torch.arange(k, device=g.device) == idx[..., None].long())
+    d_tpix = ch.w * g_depth[..., None] + g_med[..., None] * onehot
+    zero = torch.zeros_like(d_tpix)
+    d_tpix = torch.where(ch.tpix_raw >= near_plane, d_tpix, zero)
+
+    d_alpha_raw = torch.where(ch.keep & (ch.alpha_raw < ALPHA_MAX), d_alpha,
+                              zero)
+    d_opac = torch.sum(
+        d_alpha_raw * torch.exp(-torch.clamp(ch.sigma, 0.0, 50.0)), dim=1)
+    d_sigma = torch.where((ch.sigma >= 0.0) & (ch.sigma <= 50.0),
+                          -ch.alpha_raw * d_alpha_raw, zero)
+
+    # Tile-local pixel moments of d_sigma (1, u, v, u^2, uv, v^2) and
+    # d_tpix (1, u, v); moments_to_dg recombines them per splat.
+    u0, v0 = up[:, :1], vp[:, :1]
+    ul, vl = up - u0, vp - v0
+    basis = torch.stack([torch.ones_like(ul), ul, vl, ul * ul, ul * vl,
+                         vl * vl], dim=-1)                     # [T, P, 6]
+    S = torch.einsum("tpk,tpm->tkm", d_sigma, basis)
+    T3 = torch.einsum("tpk,tpm->tkm", d_tpix, basis[..., :3])
+    d_vals = torch.einsum("tpk,tpv->tkv", ch.w, g_v)
+    return moments_to_dg(g, S, T3, d_opac, d_vals, u0, v0)
+
+
+def moments_to_dg(g, S, T3, d_opac, d_vals, u0, v0) -> torch.Tensor:
+    """Recombine tile-local pixel moments into per-splat gradients.
+
+    ``S`` [T, K, 6] are the moments of d_sigma against (1, u, v, u^2, uv,
+    v^2), ``T3`` [T, K, 3] those of d_tpix against (1, u, v), ``d_opac``
+    [T, K] and ``d_vals`` [T, K, V]; ``u0``/``v0`` [T, 1] are each tile's
+    first pixel centre.  Returns d_g [T, K, 9 + V] in g's column layout.
+    """
+    s00, s10, s01 = S[..., 0], S[..., 1], S[..., 2]
+    s20, s11, s02 = S[..., 3], S[..., 4], S[..., 5]
+    t00, t10, t01 = T3[..., 0], T3[..., 1], T3[..., 2]
+    mu = g[..., 0] - u0
+    mv = g[..., 1] - v0
+    ga, gb, gc = g[..., 2], g[..., 3], g[..., 4]
+    pu, pv = g[..., 6], g[..., 7]
+    # sum_p d_sigma * du = s10 - mu * s00 (and dv alike).
+    sdu = s10 - mu * s00
+    sdv = s01 - mv * s00
+    cols = [
+        -(ga * sdu + gb * sdv + pu * t00),
+        -(gc * sdv + gb * sdu + pv * t00),
+        0.5 * (s20 - 2.0 * mu * s10 + mu * mu * s00),
+        s11 - mu * s01 - mv * s10 + mu * mv * s00,
+        0.5 * (s02 - 2.0 * mv * s01 + mv * mv * s00),
+        t00,
+        t10 - mu * t00,
+        t01 - mv * t00,
+        d_opac,
+    ]
+    return torch.cat([torch.stack(cols, dim=-1), d_vals], dim=-1)
+
+
+def fused_backward(g: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
+                   t_total: torch.Tensor, g_v: torch.Tensor,
+                   g_alpha: torch.Tensor, g_depth: torch.Tensor,
+                   g_med: torch.Tensor, ntx: int, ts: int, near_plane: float,
+                   tile_chunk: int = 64) -> torch.Tensor:
+    """Backward of :func:`fused_forward` (plain version): the JAX package's
+    ``fused_bwd_from_g`` followed by ``moments_to_dg``.
+
+    Args:
+        g, mask: the forward's inputs.
+        idx: [T, P] int32 median slot of the forward; t_total: [T, P]
+            transmittance after the window (1 - alpha).
+        g_v [T, P, V], g_alpha, g_depth, g_med [T, P]: cotangents of the
+            forward's out_v, alpha, depth_acc and median.
+
+    Returns:
+        d_g [T, K, 9 + V]; exactly 0 at masked and dead slots.  Its columns
+        0:2 are the gradient of an additive screen-space sink on the means.
+    """
+    t = g.shape[0]
+    up, vp = (x.to(g.dtype) for x in pixel_centers(
+        torch.arange(t, device=g.device), ntx, ts))
+    parts = []
+    for s in range(0, t, tile_chunk):
+        sl = slice(s, s + tile_chunk)
+        parts.append(_backward_chunk(
+            g[sl], mask[sl], up[sl], vp[sl], idx[sl], t_total[sl], g_v[sl],
+            g_alpha[sl], g_depth[sl], g_med[sl], near_plane))
+    return torch.cat(parts, dim=0)

@@ -15,6 +15,10 @@
 //            first max-weight slot: a running first-max over the key
 //            2 + (K - k) / K (crossed) | w (not crossed).
 // alpha_out = 1 - exp(carry) and median = 0 where alpha_out is 0.
+// When the caller needs a backward it passes a prefix buffer: the kernel
+// then also writes the carry in front of every 64-slot batch, [K/64, T, P]
+// float32, the residual the backward kernel (batched_bwd.cu) restarts its
+// chain from.  The inference path passes none and writes nothing more.
 //
 // Bound on the H100: operations, not bytes -- the SFU transcendentals
 // (exp, and the exp and log1p of every live pair) and the FP32 FMAs.  Per
@@ -56,7 +60,7 @@ composite_kernel(const float* __restrict__ g, const float* __restrict__ mask,
                  int k_total, int ntx, float near_plane,
                  float* __restrict__ out_v, float* __restrict__ alpha_out,
                  float* __restrict__ depth_out, float* __restrict__ median_out,
-                 int* __restrict__ idx_out) {
+                 int* __restrict__ idx_out, float* __restrict__ prefix_out) {
   constexpr int D = 9 + V;
   __shared__ float sg[kBatch * D];
   __shared__ float sm[kBatch];
@@ -84,6 +88,9 @@ composite_kernel(const float* __restrict__ g, const float* __restrict__ mask,
 
   for (int k0 = 0; k0 < k_total; k0 += kBatch) {
     const int nb = min(kBatch, k_total - k0);
+    if (prefix_out != nullptr)
+      prefix_out[((size_t)(k0 / kBatch) * gridDim.x + tile) * kPixels + p] =
+          carry;
     __syncthreads();  // the previous batch is consumed
     for (int i = p; i < nb * D; i += kPixels) sg[i] = gt[(size_t)k0 * D + i];
     int live = 0;
@@ -145,19 +152,21 @@ composite_kernel(const float* __restrict__ g, const float* __restrict__ mask,
 template <int V>
 int launch(const float* g, const float* mask, int t, int k, int ntx,
            float near_plane, float* out_v, float* alpha, float* depth,
-           float* median, int* idx, cudaStream_t stream) {
+           float* median, int* idx, float* prefix, cudaStream_t stream) {
   composite_kernel<V><<<t, kPixels, 0, stream>>>(
-      g, mask, k, ntx, near_plane, out_v, alpha, depth, median, idx);
+      g, mask, k, ntx, near_plane, out_v, alpha, depth, median, idx, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch; -1 for an unsupported V.
+// ``prefix`` may be null (no backward to follow).
 extern "C" int composite_batched_fwd(const void* g, const void* mask, int t,
                                      int k, int v, int ntx, float near_plane,
                                      void* out_v, void* alpha, void* depth,
-                                     void* median, void* idx, void* stream) {
+                                     void* median, void* idx, void* prefix,
+                                     void* stream) {
   const auto* gp = static_cast<const float*>(g);
   const auto* mp = static_cast<const float*>(mask);
   auto* ov = static_cast<float*>(out_v);
@@ -165,12 +174,15 @@ extern "C" int composite_batched_fwd(const void* g, const void* mask, int t,
   auto* de = static_cast<float*>(depth);
   auto* me = static_cast<float*>(median);
   auto* ix = static_cast<int*>(idx);
+  auto* pf = static_cast<float*>(prefix);
   auto st = static_cast<cudaStream_t>(stream);
   switch (v) {
     case 6:
-      return launch<6>(gp, mp, t, k, ntx, near_plane, ov, al, de, me, ix, st);
+      return launch<6>(gp, mp, t, k, ntx, near_plane, ov, al, de, me, ix, pf,
+                       st);
     case 19:
-      return launch<19>(gp, mp, t, k, ntx, near_plane, ov, al, de, me, ix, st);
+      return launch<19>(gp, mp, t, k, ntx, near_plane, ov, al, de, me, ix, pf,
+                        st);
     default:
       return -1;
   }

@@ -1,4 +1,4 @@
-"""Gaussian parameter dict: activation, capacity padding, loading.
+"""Gaussian parameter dict: creation, activation, capacity, loading.
 
 Counterpart of the JAX package's ``models/gaussians.py``.  The layout is the
 reference's ``gauss_params``: ``means`` [C, 3], ``scales`` [C, 3] log-space,
@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.sh import num_sh_bases, rgb_to_sh0
 from ..utils.device import resolve_device
 
 GaussianParams = Dict[str, torch.Tensor]
@@ -70,6 +71,63 @@ def params_from_numpy(params: Dict[str, np.ndarray],
     return out
 
 
+def init_from_points(
+    points,
+    colors,
+    generator: torch.Generator | None,
+    sh_degree: int = 3,
+    capacity: int | None = None,
+    init_opacity: float = 0.1,
+    latent_dim: int = 0,
+    device=None,
+) -> tuple[GaussianParams, torch.Tensor]:
+    """Splatfacto-style initialization from a point cloud [N, 3] with
+    colours [N, 3] in [0, 1].
+
+    Scales are the log of the mean distance to the 3 nearest neighbours
+    (an O(N^2) distance table, at init time only); quaternions are normal
+    draws from ``generator`` (on its device), normalized; opacities start
+    at logit(``init_opacity``); SH rest coefficients at zero.
+
+    Returns:
+        (params, alive) at ``capacity`` rows (default: the point count), on
+        ``device`` (the card by default).
+    """
+    dev = resolve_device(device)
+    points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    colors = torch.as_tensor(colors, dtype=torch.float32, device=dev)
+    n = points.shape[0]
+    capacity = capacity or n
+    if capacity < n:
+        raise ValueError(f"init_from_points: capacity {capacity} < {n} "
+                         "points")
+    d2 = torch.sum((points[:, None, :] - points[None, :, :]) ** 2, dim=-1)
+    d2 = d2 + torch.eye(n, device=dev) * 1e10
+    knn = torch.topk(d2, 3, dim=-1, largest=False).values
+    avg_dist = torch.mean(torch.sqrt(torch.clamp(knn, min=1e-12)), dim=-1)
+    log_scales = torch.log(avg_dist)[:, None].repeat(1, 3)
+
+    gen_dev = generator.device if generator is not None \
+        else torch.device("cpu")
+    quats = torch.randn((n, 4), generator=generator, device=gen_dev).to(dev)
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+
+    logit_op = float(np.log(init_opacity / (1 - init_opacity)))
+    params = {
+        "means": points,
+        "scales": log_scales,
+        "quats": quats,
+        "opacities": torch.full((n, 1), logit_op, device=dev),
+        "features_dc": rgb_to_sh0(colors),
+        "features_rest": torch.zeros((n, num_sh_bases(sh_degree) - 1, 3),
+                                     device=dev),
+    }
+    if latent_dim:
+        params["distill_features"] = torch.zeros((n, latent_dim), device=dev)
+    alive = torch.arange(capacity, device=dev) < n
+    return pad_to_capacity(params, capacity), alive
+
+
 def pad_to_capacity(params: GaussianParams, capacity: int) -> GaussianParams:
     """Pad every per-Gaussian tensor's leading dim to ``capacity``.
 
@@ -92,6 +150,20 @@ def pad_to_capacity(params: GaussianParams, capacity: int) -> GaussianParams:
             fill.fill_(-15.0)
         out[name] = torch.cat([x, fill], dim=0)
     return out
+
+
+def grow_capacity(params: GaussianParams, alive: torch.Tensor,
+                  new_capacity: int) -> tuple[GaussianParams, torch.Tensor]:
+    """Pad the table and the alive mask to ``new_capacity`` rows (the new
+    rows dead)."""
+    out = pad_to_capacity(params, new_capacity)
+    grown = torch.zeros(new_capacity, dtype=alive.dtype, device=alive.device)
+    grown[:alive.shape[0]] = alive
+    return out, grown
+
+
+def num_alive(alive: torch.Tensor) -> torch.Tensor:
+    return torch.sum(alive.to(torch.int32))
 
 
 def activated_opacity(params: GaussianParams,

@@ -1,9 +1,11 @@
-"""RaDe-GS model: the forward outputs of one camera.
+"""RaDe-GS model: the outputs of one camera and the loss stack.
 
-Counterpart of the JAX package's ``models/rade_gs.py`` for the inference
-path: colours from SH, one tiled render, background blend and the
-reference's output dict.  The depth->normal error maps, the loss stack and
-the ``backend="pallas"`` renderer come with later slices.
+Counterpart of the JAX package's ``models/rade_gs.py``: colours from SH,
+one tiled render, background blend, the reference's output dict with the
+two depth->normal error maps, and the loss (L1 + SSIM, optional scale
+regularization, the depth-normal consistency term from
+``regularization_from_iter``).  The ``backend="pallas"`` renderer comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -13,28 +15,35 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..core.cameras import Camera
+from ..core.cameras import Camera, depth_pair_to_normal
 from ..core.options import RenderOptions
 from ..core.sh import eval_sh
 from ..ops.rasterize import RenderMeta, render_tiled
+from ..train import losses
 from .gaussians import GaussianParams, activated_opacity, activated_scales
 
 
 @dataclasses.dataclass(frozen=True)
 class RadeGSConfig:
-    """Model configuration of the forward render; field names and defaults
-    are the JAX package's.  Its loss fields (``ssim_lambda``,
-    ``use_scale_regularization``, ``max_gauss_ratio``,
-    ``regularization_from_iter``, ``use_depth_normal_loss``,
-    ``depth_normal_lambda``, ``depth_ratio``) and ``prefilter_voxel`` come
-    with the training slice.
-    """
+    """Model configuration; field names and defaults are the JAX
+    package's."""
 
     sh_degree: int = 3
     sh_degree_interval: int = 1000
+    ssim_lambda: float = 0.2
+    use_scale_regularization: bool = False
+    max_gauss_ratio: float = 10.0
+    regularization_from_iter: int = 15000
+    use_depth_normal_loss: bool = True
+    depth_normal_lambda: float = 0.05
+    depth_ratio: float = 0.6
     background: str = "random"          # "random" | "black" | "white"
     latent_dim: int = 0                 # 13 for rade-features
     render: RenderOptions = RenderOptions()
+    # Accepted for parity with the reference config: binning already drops
+    # every Gaussian with radius 0 (``Projection.valid``), so it changes
+    # nothing.
+    prefilter_voxel: bool = False
 
     def active_sh_degree(self, step: int) -> int:
         if self.sh_degree <= 0:
@@ -85,14 +94,19 @@ def get_outputs(
     config: RadeGSConfig,
     generator: Optional[torch.Generator] = None,
     training: bool = True,
+    compute_error_maps: bool = False,
+    absgrad_sink: Optional[torch.Tensor] = None,
     crop_box: Optional[torch.Tensor] = None,
 ) -> Tuple[Dict[str, torch.Tensor], RenderMeta]:
     """Render one camera and assemble the reference's output dict.
 
     Keys: rgb, depth (expected), median_depth, accumulation, normal_cam,
     normals ([0, 1]-mapped), background, spilled, plus "features" when
-    latent_dim > 0.  ``crop_box`` ([2, 3] world-space min/max corners)
-    keeps only the Gaussians inside the box.
+    latent_dim > 0 and, with ``compute_error_maps``, the two depth-normal
+    error maps [H, W, 1].  ``absgrad_sink`` is the rasterizer's
+    screen-space sink (``ops/rasterize.py::absgrad_sink_shape``).
+    ``crop_box`` ([2, 3] world-space min/max corners) keeps only the
+    Gaussians inside the box.
     """
     if crop_box is not None:
         inside = torch.all((params["means"] >= crop_box[0][None, :])
@@ -103,7 +117,7 @@ def get_outputs(
     out, meta = render_tiled(
         params["means"], params["quats"], activated_scales(params),
         activated_opacity(params, alive), colors, camera, config.render,
-        alive_mask=alive.to(torch.bool),
+        absgrad_sink=absgrad_sink, alive_mask=alive.to(torch.bool),
     )
     bg = background_color(config, generator, training, device=out.color.device)
     rgb = torch.clamp(out.color[..., :3] + (1.0 - out.alpha[..., None]) * bg,
@@ -129,4 +143,46 @@ def get_outputs(
     }
     if config.latent_dim:
         outputs["features"] = out.color[..., 3:3 + config.latent_dim]
+
+    if compute_error_maps:
+        depth_normals = depth_pair_to_normal(camera, outputs["depth"],
+                                             outputs["median_depth"])
+        err = 1.0 - torch.sum(out.normal[None] * depth_normals, dim=-1)
+        outputs["depth_normal_error_map"] = err[0][..., None]
+        outputs["middepth_normal_error_map"] = err[1][..., None]
     return outputs, meta
+
+
+def get_loss(
+    outputs: Dict[str, torch.Tensor],
+    image: torch.Tensor,
+    params: GaussianParams,
+    alive: torch.Tensor,
+    step: int,
+    config: RadeGSConfig,
+    reg_active: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total loss and the per-term dict.
+
+    ``reg_active`` switches the depth-normal term on (the trainer sets it
+    from ``regularization_from_iter``); it needs the error maps of
+    ``get_outputs(compute_error_maps=True)``.
+    """
+    loss_dict = {
+        "rgb_loss": losses.rgb_loss(outputs["rgb"], image, config.ssim_lambda)
+    }
+    if config.use_scale_regularization:
+        # Splatfacto applies the anisotropy penalty only every 10th step.
+        reg = losses.scale_regularization(
+            params["scales"], alive.to(torch.float32), config.max_gauss_ratio)
+        loss_dict["scale_reg"] = reg if step % 10 == 0 \
+            else torch.zeros_like(reg)
+    if reg_active and config.use_depth_normal_loss:
+        loss_dict["depth_normal_loss"] = losses.depth_normal_loss(
+            outputs["depth_normal_error_map"],
+            outputs["middepth_normal_error_map"],
+            config.depth_ratio,
+            config.depth_normal_lambda,
+        )
+    total = sum(loss_dict.values())
+    return total, loss_dict

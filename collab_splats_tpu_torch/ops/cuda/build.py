@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("binning_kernel", "batched_fwd")
+SOURCES = ("binning_kernel", "batched_fwd", "batched_bwd", "segsum_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

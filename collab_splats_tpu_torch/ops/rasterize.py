@@ -1,10 +1,13 @@
-"""Tiled rasterizer, forward: projection -> binning -> compositing -> maps.
+"""Tiled rasterizer: projection -> binning -> compositing -> maps.
 
-Counterpart of the JAX package's ``ops/rasterize.py`` (its fused-forward
+Counterpart of the JAX package's ``ops/rasterize.py`` (its fused-compositor
 branch).  Projection and binning are dense tensor code; the window gather
-is one row gather of the packed per-gaussian matrix; compositing is the
-batched compositor of ``ops/cuda/batched.py`` (the CUDA kernel on the card,
-the plain version on the CPU) over every tile at once.
+is one row gather of the packed per-gaussian matrix (with a sorted
+segment-sum backward, ``ops/segsum.py``); compositing is the batched
+compositor of ``ops/cuda/batched.py`` (the CUDA kernels on the card, the
+plain versions on the CPU) over every tile at once, forward and backward.
+An optional additive screen-space sink on the window rows' means collects
+the per-(tile, slot) mean gradient that densification reads.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from ..core.options import RenderOptions
 from ..core.projection import Projection, project_gaussians
 from .cuda.batched import composite
 from .segsum import expand_rows, spread_masked
-from .tiles import TileBins, bin_gaussians
+from .tiles import TileBins, bin_gaussians, default_tile_capacity
 
 # Packed per-gaussian column layout shared by every compositing path.
 PG_MEAN2D = slice(0, 2)
@@ -54,6 +57,16 @@ def window_rows(bins: TileBins, per_gauss: torch.Tensor) -> torch.Tensor:
         num_tiles, k_cap, per_gauss.shape[1])
 
 
+def absgrad_sink_shape(width: int, height: int, n: int,
+                       opts: RenderOptions) -> tuple[int, int, int]:
+    """Shape [T, K, 2] of the screen-space sink of a render of ``n``
+    Gaussians: one (u, v) per tile window slot."""
+    ts = opts.tile_size
+    ntx, nty = -(-width // ts), -(-height // ts)
+    k = opts.tile_capacity or default_tile_capacity(n)
+    return (ntx * nty, k, 2)
+
+
 class RenderMeta(NamedTuple):
     """Side information of a render (the gsplat ``info`` dict's content)."""
 
@@ -72,13 +85,17 @@ def render_tiled(
     camera: Camera,
     opts: RenderOptions = RenderOptions(),
     normals_world: Optional[torch.Tensor] = None,
+    absgrad_sink: Optional[torch.Tensor] = None,
     alive_mask: Optional[torch.Tensor] = None,
 ) -> tuple[RenderOutput, RenderMeta]:
     """Render one camera with the tiled rasterizer.
 
     ``colors`` is [N, C] with SH already evaluated; ``alive_mask`` ([N]
-    bool) removes dead capacity-padding rows from binning.  Returns
-    (RenderOutput with [H, W, ...] maps and no background, RenderMeta).
+    bool) removes dead capacity-padding rows from binning; ``absgrad_sink``
+    (zeros of :func:`absgrad_sink_shape`) is added to the window rows'
+    2D means, so its gradient is the per-(tile, slot) mean gradient.
+    Returns (RenderOutput with [H, W, ...] maps and no background,
+    RenderMeta).
     """
     viewmat = camera.viewmat()
     proj = project_gaussians(
@@ -97,7 +114,7 @@ def render_tiled(
     else:
         normal_cam = proj.normal
     return render_from_projections(proj, opac, colors, normal_cam, camera,
-                                   opts)
+                                   opts, absgrad_sink=absgrad_sink)
 
 
 def render_from_projections(
@@ -107,12 +124,16 @@ def render_from_projections(
     normal_cam: torch.Tensor,
     camera: Camera,
     opts: RenderOptions = RenderOptions(),
+    absgrad_sink: Optional[torch.Tensor] = None,
 ) -> tuple[RenderOutput, RenderMeta]:
     """Binning + compositing from already-projected Gaussians."""
     bins = bin_gaussians(proj, camera.width, camera.height, opts,
                          opacities=opac.detach())
     ts = opts.tile_size
     g_full = window_rows(bins, pack_per_gauss(proj, opac, normal_cam, colors))
+    if absgrad_sink is not None:
+        g_full = torch.cat([g_full[..., :2] + absgrad_sink, g_full[..., 2:]],
+                           dim=-1)
     out_v, alpha, depth_acc, median, _ = composite(
         g_full, bins.tile_mask.to(torch.float32), bins.num_tiles_x, ts,
         opts.near_plane)

@@ -1,0 +1,375 @@
+"""Training engine: the train step and the refinement schedule.
+
+Counterpart of the JAX package's ``train/trainer.py``.  One step renders a
+camera, takes the loss and its backward (the rasterizer's screen-space sink
+rides the same backward), zeroes the gradients of dead capacity rows,
+skips the update when any gradient is not finite, and otherwise runs the
+per-group Adam and accumulates the densification statistics.  Around it,
+the host-side schedule of the reference: refine every ``refine_every``
+steps inside the densification window, reset opacities periodically,
+depth-normal loss from ``regularization_from_iter``, capacity growth ahead
+of densification.
+
+Left for later slices (each raises ``NotImplementedError`` naming its
+ROADMAP item): camera pose optimization, bilateral grids, rade-features
+training, progressive resolution, checkpoint save/restore.  Evaluation
+reports PSNR and SSIM (no LPIPS).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.cameras import Camera
+from ..models import rade_gs
+from ..models.gaussians import GaussianParams, grow_capacity, num_alive
+from ..ops.rasterize import absgrad_sink_shape
+from ..utils.device import resolve_device
+from . import losses, optim, strategy
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """The reference's training cadence; field names and defaults are the
+    JAX package's."""
+
+    max_iterations: int = 30000
+    steps_per_eval_image: int = 100
+    steps_per_eval_all_images: int = 1000
+    model: rade_gs.RadeGSConfig = rade_gs.RadeGSConfig()
+    strategy: strategy.StrategyConfig = strategy.StrategyConfig()
+    scene_scale: float = 1.0
+    capacity_headroom: float = 1.5   # grow arrays when occupancy * this > C
+    seed: int = 42
+    optimize_camera_poses: bool = False
+    use_bilateral_grid: bool = False
+    num_downscales: int = 0
+
+    def __post_init__(self):
+        if self.optimize_camera_poses or self.use_bilateral_grid:
+            raise NotImplementedError(
+                "camera_opt and bilateral grids are not ported yet "
+                "(ROADMAP Queue 1 item 4)")
+        if self.num_downscales > 0:
+            raise NotImplementedError(
+                "progressive resolution is not ported yet (ROADMAP Queue 1 "
+                "item 1)")
+
+
+def _move_camera(cam: Camera, device) -> Camera:
+    return dataclasses.replace(cam, K=cam.K.to(device),
+                               c2w=cam.c2w.to(device))
+
+
+def _image(im, device) -> torch.Tensor:
+    """A float32 [H, W, 3] image (numpy array or tensor) on ``device``."""
+    if isinstance(im, torch.Tensor):
+        return im.detach().to(device, torch.float32)
+    return torch.tensor(np.asarray(im, np.float32), device=device)
+
+
+class Trainer:
+    """Single-card trainer over a full-image dataset.
+
+    ``params`` are the raw parameter tensors at capacity C and ``alive`` the
+    [C] bool mask; the trainer keeps its own leaf copies on ``device`` (the
+    card by default).  Refinement, opacity reset and capacity growth update
+    them in place, so the optimizer keeps its parameters.
+    """
+
+    def __init__(
+        self,
+        config: TrainerConfig,
+        cameras: Sequence[Camera],
+        images: Sequence,
+        params: GaussianParams,
+        alive: torch.Tensor,
+        groups: Optional[Dict[str, optim.GroupSpec]] = None,
+        features: Optional[Sequence[Dict]] = None,
+        device=None,
+    ):
+        if features is not None:
+            raise NotImplementedError(
+                "rade-features training is not ported yet (ROADMAP Queue 1 "
+                "item 2)")
+        if len(cameras) != len(images):
+            raise ValueError(f"{len(cameras)} cameras but {len(images)} "
+                             "images")
+        dev = resolve_device(device)
+        self.device = dev
+        self.config = config
+        self.cameras = [_move_camera(c, dev) for c in cameras]
+        self.images = [_image(im, dev) for im in images]
+        self.params = {k: v.detach().to(dev, torch.float32).clone()
+                       .requires_grad_(True) for k, v in params.items()}
+        self.alive = alive.to(dev, torch.bool)
+        self.groups = dict(groups or optim.RADE_GS_GROUPS)
+        self.optimizer, self.scheduler = optim.make_optimizer(self.params,
+                                                              self.groups)
+        self.strat_state = strategy.init_state(self.alive.shape[0], dev)
+        self.step = 0
+        self.history: List[Dict[str, float]] = []
+
+    def _generator(self, salt: int) -> torch.Generator:
+        """The step's random stream ``salt`` (1: background, 2: split
+        noise), keyed by (seed, step) so a repeated or resumed step draws
+        the same numbers.  It lives on the trainer's device, so the draws
+        are made where they are used."""
+        return torch.Generator(device=self.device).manual_seed(
+            (self.config.seed * 1_000_003 + 4 * self.step + salt) % (1 << 62))
+
+    # ----------------------------------------------------------- the step
+    def _train_step(self, camera: Camera, image: torch.Tensor,
+                    reg_active: bool) -> Dict[str, torch.Tensor]:
+        cfg = self.config.model
+        params, alive = self.params, self.alive
+        cap = alive.shape[0]
+        sink = torch.zeros(absgrad_sink_shape(camera.width, camera.height,
+                                              cap, cfg.render),
+                           device=self.device, requires_grad=True)
+        outputs, meta = rade_gs.get_outputs(
+            params, alive, camera, self.step, cfg,
+            generator=self._generator(1), training=True,
+            compute_error_maps=reg_active, absgrad_sink=sink)
+        loss, ldict = rade_gs.get_loss(outputs, image, params, alive,
+                                       self.step, cfg, reg_active=reg_active)
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names] + [sink],
+                                    allow_unused=True)
+        sink_grad = grads[-1]
+
+        # Dead rows must not move: zero their gradients exactly.
+        amask = alive.to(torch.float32)
+        pgrads = {}
+        for k, g in zip(names, grads[:-1]):
+            g = torch.zeros_like(params[k]) if g is None else g
+            pgrads[k] = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
+
+        # Non-finite guard: one degenerate splat's inf/NaN gradient would
+        # poison every Adam moment, so such a step is skipped (parameters,
+        # optimizer and statistics keep their values) and counted.  Taking
+        # the decision costs one host read of this flag per step.
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in [*pgrads.values(), sink_grad]]).all()
+        if bool(finite):
+            for k, g in pgrads.items():
+                params[k].grad = g
+            self.optimizer.step()
+            self.scheduler.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.strat_state = strategy.update_state(self.strat_state, meta,
+                                                     sink_grad)
+        rgb = outputs["rgb"].detach()
+        return {
+            "nonfinite_grad": (~finite).to(torch.float32),
+            "loss": loss.detach(),
+            "psnr": losses.psnr(rgb, image),
+            "spilled": outputs["spilled"].to(torch.float32),
+            "num_gaussians": num_alive(alive).to(torch.float32),
+            **{k: v.detach() for k, v in ldict.items()},
+        }
+
+    # --------------------------------------------------------------- host
+    def train_one_step(self) -> Dict[str, float]:
+        cfg = self.config
+        scfg = cfg.strategy
+        # Host-side, step-keyed camera draw, as the JAX trainer draws it.
+        idx = int(np.random.RandomState(cfg.seed * 9973 + self.step).randint(
+            len(self.cameras)))
+        reg_active = (cfg.model.use_depth_normal_loss
+                      and self.step >= cfg.model.regularization_from_iter)
+        metrics = self._train_step(self.cameras[idx], self.images[idx],
+                                   reg_active)
+        self.step += 1
+
+        refined = {}
+        if scfg.is_refine_step(self.step) and self.step < cfg.max_iterations:
+            densify = scfg.densify_active(self.step, len(self.cameras))
+            cull_only = (not scfg.splits_allowed(self.step)
+                         and scfg.continue_cull_post_densification)
+            if densify or cull_only:
+                self._maybe_grow_capacity()
+                res = strategy.refine(
+                    self.params, self.alive, self.strat_state, scfg,
+                    generator=self._generator(2),
+                    scene_scale=cfg.scene_scale, allow_split=densify,
+                    allow_dup=densify,
+                    scale_cull=scfg.scale_cull_active(self.step),
+                    screen_size_cull=scfg.screen_size_active(self.step))
+                self._assign(res.params)
+                self.alive = res.alive
+                strategy.zero_opt_rows(self.optimizer, res.written)
+                self.strat_state = res.state
+                refined = {"refine_dup": res.n_dup, "refine_split":
+                           res.n_split, "refine_cull": res.n_cull,
+                           "refine_dropped": res.dropped}
+        if scfg.is_reset_step(self.step):
+            self._assign(strategy.reset_opacity(self.params, scfg))
+            # Zero the opacity moments, else momentum undoes the clamp.
+            optim.zero_group_moments(self.optimizer, "opacities")
+
+        # One device -> host transfer for the whole metrics dict.
+        keys = list(metrics)
+        values = torch.stack([metrics[k].reshape(()) for k in keys]).tolist()
+        out = dict(zip(keys, values))
+        out["num_gaussians"] = int(out["num_gaussians"])
+        out.update({k: int(v) for k, v in refined.items()})
+        self.history.append(out)
+        return out
+
+    @torch.no_grad()
+    def _assign(self, new_params: GaussianParams) -> None:
+        """Write new parameter values into the leaf tensors, in place."""
+        for k, v in new_params.items():
+            if v is not self.params[k]:
+                self.params[k].copy_(v)
+
+    def _maybe_grow_capacity(self) -> None:
+        c = self.alive.shape[0]
+        n = int(num_alive(self.alive))
+        if n * self.config.capacity_headroom <= c:
+            return
+        new_c = 2 * c
+        grown, self.alive = grow_capacity(
+            {k: v.detach() for k, v in self.params.items()}, self.alive,
+            new_c)
+        self.params = {k: v.requires_grad_(True) for k, v in grown.items()}
+        # Surviving rows keep their Adam moments; new rows start at zero.
+        optim.graft_opt_state(self.optimizer, self.params)
+
+        def pad(x):
+            out = torch.zeros(new_c, dtype=x.dtype, device=x.device)
+            out[:c] = x
+            return out
+
+        self.strat_state = strategy.StrategyState(
+            *(pad(x) for x in self.strat_state))
+
+    def train(
+        self,
+        num_steps: Optional[int] = None,
+        log_every: int = 100,
+        log_fn: Callable = print,
+        eval_cameras: Optional[Sequence[Camera]] = None,
+        eval_images: Optional[Sequence] = None,
+    ) -> List[Dict[str, float]]:
+        """Run the training loop; with eval data, one eval image every
+        ``steps_per_eval_image`` steps and the full set every
+        ``steps_per_eval_all_images`` (``eval_psnr`` / ``eval_all_psnr`` in
+        ``self.history``)."""
+        if num_steps is None:
+            num_steps = self.config.max_iterations
+        do_eval = eval_cameras is not None and len(eval_cameras) > 0
+        t0 = time.time()
+        for _ in range(num_steps):
+            m = self.train_one_step()
+            if do_eval and self.step % self.config.steps_per_eval_image == 0:
+                i = (self.step // self.config.steps_per_eval_image) % len(
+                    eval_cameras)
+                ev = self.eval_image(eval_cameras[i], eval_images[i])
+                self.history[-1]["eval_psnr"] = ev["psnr"]
+                self.history[-1]["eval_ssim"] = ev["ssim"]
+            if do_eval and \
+                    self.step % self.config.steps_per_eval_all_images == 0:
+                evs = [self.eval_image(c, im)
+                       for c, im in zip(eval_cameras, eval_images)]
+                self.history[-1]["eval_all_psnr"] = float(
+                    np.mean([e["psnr"] for e in evs]))
+                log_fn(f"step {self.step:6d}  eval-all psnr "
+                       f"{self.history[-1]['eval_all_psnr']:.2f}")
+            if self.step % log_every == 0:
+                rate = self.step / max(time.time() - t0, 1e-9)
+                log_fn(f"step {self.step:6d}  loss {m['loss']:.4f}  "
+                       f"psnr {m['psnr']:.2f}  N {m['num_gaussians']}  "
+                       f"{rate:.1f} it/s")
+        return self.history
+
+    @torch.no_grad()
+    def eval_image(self, camera: Camera, image) -> Dict[str, float]:
+        outputs, _ = rade_gs.get_outputs(
+            self.params, self.alive, _move_camera(camera, self.device),
+            self.step, self.config.model, training=False)
+        image = _image(image, self.device)
+        return {"psnr": float(losses.psnr(outputs["rgb"], image)),
+                "ssim": float(losses.ssim(outputs["rgb"], image))}
+
+    # ------------------------------------------------------------- state
+    def state(self) -> Dict:
+        """A copy of everything a step reads and writes: parameters,
+        optimizer and schedule, statistics, alive mask and step count.
+        :meth:`load_state` puts it back, so a step can be repeated."""
+        return {
+            "params": {k: v.detach().clone() for k, v in self.params.items()},
+            "optimizer": copy.deepcopy(self.optimizer.state_dict()),
+            "scheduler": copy.deepcopy(self.scheduler.state_dict()),
+            "strat_state": strategy.StrategyState(
+                *(x.clone() for x in self.strat_state)),
+            "alive": self.alive.clone(),
+            "step": self.step,
+        }
+
+    def load_state(self, state: Mapping) -> None:
+        """Take back a :meth:`state` of this trainer, also across a
+        capacity change: the parameters become new leaf tensors and the
+        optimizer's groups are pointed at them."""
+        self.params = {k: v.clone().requires_grad_(True)
+                       for k, v in state["params"].items()}
+        for group in self.optimizer.param_groups:
+            group["params"][0] = self.params[group["name"]]
+        # load_state_dict keeps the tensors it is given: hand it copies.
+        self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
+        self.scheduler.load_state_dict(copy.deepcopy(state["scheduler"]))
+        self.strat_state = strategy.StrategyState(
+            *(x.clone() for x in state["strat_state"]))
+        self.alive = state["alive"].clone()
+        self.step = state["step"]
+
+    def load_state_numpy(self, flat: Mapping[str, np.ndarray]) -> None:
+        """Take over the JAX trainer's optimizer and strategy state.
+
+        ``flat`` holds numpy arrays under the keys of the JAX package's
+        checkpoints (``train/checkpoint.py``: ``"opt/"`` or ``"strat/"``
+        followed by ``_flatten``'s key path): per group its Adam ``mu``,
+        ``nu`` and update ``count``, and ``grad_accum``, ``count`` and
+        ``max_radii``.  The schedules continue from the count.
+        """
+        counts = set()
+        for group in self.optimizer.param_groups:
+            name = group["name"]
+            p = group["params"][0]
+            pre = f"opt/.inner_states/['{name}']/.inner_state/[0]/"
+            count = int(flat[pre + ".count"])
+            counts.add(count)
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.tensor(flat[pre + f".mu/['{name}']"],
+                                        device=self.device),
+                "exp_avg_sq": torch.tensor(flat[pre + f".nu/['{name}']"],
+                                           device=self.device),
+            }
+        if len(counts) != 1:
+            raise ValueError(f"groups disagree on the update count: {counts}")
+        count = counts.pop()
+        sched = self.scheduler
+        sched.last_epoch = count
+        sched._last_lr = [base * f(count) for base, f in
+                          zip(sched.base_lrs, sched.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, sched._last_lr):
+            group["lr"] = lr
+        self.strat_state = strategy.StrategyState(*(
+            torch.tensor(flat[f"strat/.{name}"], device=self.device)
+            for name in strategy.StrategyState._fields))
+
+    def save(self, directory) -> None:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
+                                  "Queue 1 item 1: train/checkpoint.py)")
+
+    def restore(self, path) -> None:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
+                                  "Queue 1 item 1: train/checkpoint.py)")

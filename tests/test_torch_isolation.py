@@ -17,7 +17,12 @@ from collab_splats_tpu_torch.data.synthetic import (
     orbit_cameras,
     random_gaussian_params,
 )
-from collab_splats_tpu_torch.models.gaussians import params_from_numpy
+from collab_splats_tpu_torch.models.gaussians import (
+    init_from_points,
+    params_from_numpy,
+)
+from collab_splats_tpu_torch.train import strategy
+from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(collab_splats_tpu_torch.__file__).parent
@@ -32,6 +37,9 @@ def port_modules():
 def test_every_module_imports_without_jax():
     mods = port_modules()
     assert "collab_splats_tpu_torch.ops.cuda.batched" in mods
+    for m in ("ops.cuda.segsum_kernel", "train.losses", "train.optim",
+              "train.strategy", "train.trainer"):
+        assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in sorted(FORBIDDEN)]
@@ -71,8 +79,13 @@ def test_no_jax_import_in_source(path):
         "features_dc": np.zeros((2, 3), np.float32),
         "features_rest": np.zeros((2, 0, 3), np.float32),
     }),
+    lambda: init_from_points(np.zeros((4, 3), np.float32),
+                             np.zeros((4, 3), np.float32), None),
+    lambda: strategy.init_state(4),
+    lambda: Trainer(TrainerConfig(), [], [], {}, torch.zeros(0, dtype=bool)),
 ], ids=["random_gaussian_params", "orbit_cameras", "make_camera",
-        "camera_from_numpy", "params_from_numpy"])
+        "camera_from_numpy", "params_from_numpy", "init_from_points",
+        "strategy.init_state", "Trainer"])
 def test_card_default_raises_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
