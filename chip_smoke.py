@@ -1,19 +1,26 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-Builds the port's four CUDA kernels from ``collab_splats_tpu_torch/csrc``
-and holds each against its plain PyTorch version on the card.  Then it
-drives the port's two main paths:
+Builds the port's six CUDA kernels from ``collab_splats_tpu_torch/csrc``
+and holds each against its plain PyTorch version on the card (the per-tile
+pair at C = 3 and 16 colour channels and stop_threshold 0 and 1e-4), and
+the ``backend="pallas"`` render against the ``"xla"`` render.  Then it
+drives the port's four main paths:
 
-* the forward render (``models/rade_gs.py::get_outputs``) on the flagship
-  scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
-  1280x720, four orbit cameras);
-* the training step (``train/trainer.py::Trainer``) at the bench scene's
-  full width with sh_degree 3: twenty steps, the depth-normal loss off and
-  then on, one opacity reset and one refine pass; then one step repeated
-  from the same state, which must give the same bits, and a fitting run at
-  the flagship scale whose PSNR must rise by 3 dB.
+1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
+   scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
+   1280x720, four orbit cameras);
+2. the training step (``train/trainer.py::Trainer``) at the bench scene's
+   full width with sh_degree 3: twenty steps, the depth-normal loss off and
+   then on, one opacity reset and one refine pass; then one step repeated
+   from the same state, which must give the same bits, and a fitting run at
+   the flagship scale whose PSNR must rise by 3 dB;
+3. the render of both scenes with ``RenderOptions(backend="pallas")``;
+4. the training step with ``backend="pallas"`` at the bench scene's width:
+   fourteen steps with the reset, the depth-normal loss and a refine pass
+   reading ``update_state_from_isect``, and a repeated step.
 
-It checks what comes out and prints per-layer and per-kernel timings.
+It checks what comes out, the kernels each path launches, and prints
+per-layer and per-kernel timings.
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -21,10 +28,11 @@ Run it from the repository root, on a machine with a CUDA card and nvcc:
 
 Any failure raises and exits non-zero.  The last line of a successful run
 is ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the main path, its error against its plain version,
+with its launches on a main path, its error against its plain version,
 and its times beside its bound.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -42,7 +50,7 @@ from collab_splats_tpu_torch.data import synthetic
 from collab_splats_tpu_torch.models import gaussians, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
-                                              segsum_kernel)
+                                              composite, segsum_kernel)
 from collab_splats_tpu_torch.train import losses, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -58,6 +66,12 @@ PLAIN_REPS = 3     # the plain versions of the backward run for seconds
 TRAIN_STEPS = 20
 REG_FROM = 10      # the depth-normal loss from this step on
 REFINE_EVERY = 8   # opacity reset after step 8, refine pass after step 16
+# The backend="pallas" training path: opacity reset after step 4, refine
+# pass after step 12, two steps at the grown capacity.
+PALLAS_STEPS = 14
+PALLAS_REG_FROM = 6
+PALLAS_REFINE_EVERY = 4
+PALLAS_REFINE_AT = 12
 FIT_STEPS = 300
 RENDER_REPS = 30   # the host-clock render time spreads more than a kernel's
 TS = 16
@@ -145,6 +159,12 @@ def make_scene(name: str, dev, n=None, width=None, height=None,
 
 def render(params, alive, cam, cfg):
     return rade_gs.get_outputs(params, alive, cam, 0, cfg, training=False)
+
+
+def pallas_config(cfg):
+    """The scene's configuration with the per-tile compositor."""
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, backend="pallas"))
 
 
 def kernel_inputs(params, alive, cam, cfg, latent_dim=13):
@@ -253,16 +273,20 @@ def check_composite_bwd(g, mask, ntx, fwd, seed) -> float:
     return err
 
 
-def segsum_inputs(bins, n, d, seed):
+def window_idx(bins, n):
+    """The window gather's indices over ``n`` Gaussians, dead slots
+    spread (``ops/rasterize.py::window_rows``)."""
+    return segsum.spread_masked(bins.tile_gauss.reshape(-1),
+                                bins.tile_mask.reshape(-1), n)
+
+
+def segsum_inputs(idx, d, seed):
     """The expand_rows backward's sorted ids, permutation and seeded normal
-    cotangent rows [T * K, d] for the windows ``bins`` over ``n``
-    Gaussians."""
-    idx = segsum.spread_masked(bins.tile_gauss.reshape(-1),
-                               bins.tile_mask.reshape(-1), n)
+    cotangent rows [M, d] for the gather indices ``idx`` [M]."""
     gen = torch.Generator(device=idx.device).manual_seed(seed)
     rows = torch.randn((idx.shape[0], d), generator=gen, device=idx.device)
     sorted_ids, order = torch.sort(idx, stable=True)
-    return idx, sorted_ids, order, rows
+    return sorted_ids, order, rows
 
 
 def close_1e6(got, ref, what) -> float:
@@ -284,7 +308,7 @@ def check_segsum_rows(sorted_ids, order, rows, n, what) -> float:
 
 
 def check_segsum(bins, n, d=15) -> float:
-    _, sorted_ids, order, rows = segsum_inputs(bins, n, d, seed=5)
+    sorted_ids, order, rows = segsum_inputs(window_idx(bins, n), d, seed=5)
     return check_segsum_rows(sorted_ids, order, rows, n, f"D={d}")
 
 
@@ -299,16 +323,16 @@ def check_segsum_step(tr) -> float:
     cfg = tr.config.model
     cam, alive, st = tr.cameras[0], tr.alive, tr.strat_state
     n = alive.shape[0]
-    sink = torch.zeros(rasterize.absgrad_sink_shape(
-        cam.width, cam.height, n, cfg.render), device=alive.device,
-        requires_grad=True)
+    sink = torch.zeros(sink_shape(cam, n, cfg.render), device=alive.device,
+                       requires_grad=True)
     out, meta = rade_gs.get_outputs(tr.params, alive, cam, tr.step, cfg,
                                     training=True, compute_error_maps=True,
                                     absgrad_sink=sink)
     loss, _ = rade_gs.get_loss(out, tr.images[0], tr.params, alive, tr.step,
                                cfg, reg_active=True)
     (sink_grad,) = torch.autograd.grad(loss, [sink])
-    _, sorted_ids, order, rows15 = segsum_inputs(meta.bins, n, 15, seed=8)
+    sorted_ids, order, rows15 = segsum_inputs(window_idx(meta.bins, n), 15,
+                                              seed=8)
     mask = meta.bins.tile_mask.reshape(-1)
     rows2 = torch.where(mask[:, None], sink_grad.abs().reshape(-1, 2),
                         torch.zeros((), device=alive.device))
@@ -428,10 +452,220 @@ def segsum_bound(m, d, n):
     return bound(4 * m * d + 12 * m + 4 * n * d, m * d)
 
 
-def layer_times(params, alive, cam, cfg, step=0):
-    """Median ms of each layer of one render at ``step``, called in the
-    order ``ops/rasterize.py::render_tiled`` calls them."""
-    opts = cfg.render
+# ---------------------------------------------- the per-tile compositor
+class TilesInputs:
+    """Kernel 5's and 6's inputs for one camera."""
+
+    def __init__(self, isect, starts, lens, ntx, n_color, max_chunks):
+        self.isect, self.starts, self.lens = isect, starts, lens
+        self.ntx, self.n_color, self.max_chunks = ntx, n_color, max_chunks
+
+    @classmethod
+    def of_render(cls, meta, opac, colors, k_cap):
+        """The inputs as the ``backend="pallas"`` render builds them
+        (``ops/rasterize.py::render_tiled_pallas``)."""
+        gid, starts, lens, valid = tiles.align_segments(
+            meta.bins.starts, meta.bins.sorted_gid, composite.CHUNK)
+        with torch.no_grad():
+            isect = rasterize.pack_intersections(
+                meta.proj, opac, colors, meta.proj.normal, gid, valid)
+        return cls(isect, starts, lens, meta.bins.num_tiles_x,
+                   colors.shape[1], -(-k_cap // composite.CHUNK))
+
+    def fwd_args(self, stop):
+        return (self.isect, self.starts, self.lens, self.ntx, TS,
+                self.n_color, NEAR, stop, self.max_chunks)
+
+    def bwd_args(self, nchunks, seed):
+        """Backward arguments for the forward's ``nchunks``, with seeded
+        normal cotangents of the packed maps."""
+        gen = torch.Generator(device=self.isect.device).manual_seed(seed)
+        g = torch.randn((self.lens.shape[0], TS * TS, self.n_color + 6),
+                        generator=gen, device=self.isect.device)
+        return (self.isect, self.starts, self.lens, self.ntx, nchunks, g, TS,
+                self.n_color, NEAR, self.max_chunks)
+
+
+def tiles_inputs(params, alive, cam, cfg):
+    """TilesInputs of the scene's camera with RGB (C = 3) and with RGB
+    and 13 seeded latents (C = 16, rade-features' width)."""
+    _, meta = render(params, alive, cam, cfg)
+    opac = gaussians.activated_opacity(params, alive)
+    if cfg.render.rasterize_mode == "antialiased":
+        opac = opac * meta.proj.compensation
+    colors = rade_gs.compute_colors(params, cam, 0, cfg)
+    gen = torch.Generator(device=colors.device).manual_seed(1)
+    latents = torch.rand((colors.shape[0], 13), generator=gen,
+                         device=colors.device)
+    k_cap = cfg.render.tile_capacity or tiles.default_tile_capacity(
+        alive.shape[0])
+    return [TilesInputs.of_render(meta, opac, c, k_cap)
+            for c in (colors, torch.cat([colors, latents], 1))]
+
+
+def chunks_walked(ti):
+    """[T] chunks each segment has, at most max_chunks: the walk without
+    an early exit."""
+    return torch.clamp((ti.lens + composite.CHUNK - 1) // composite.CHUNK,
+                       max=ti.max_chunks)
+
+
+def check_tiles_fwd(ti, stop):
+    """Kernel 5 against its plain version: maps within rtol/atol 1e-5,
+    nchunks equal.  Returns (max abs err, nchunks, tiles that exited
+    early)."""
+    out, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
+    ref, ref_n = composite.composite_tiles_fwd_plain(*ti.fwd_args(stop))
+    if not torch.equal(nch, ref_n):
+        raise AssertionError(f"composite_tiles C={ti.n_color} stop={stop}: "
+                             f"nchunks differ at "
+                             f"{int((nch != ref_n).sum())} tiles")
+    torch.testing.assert_close(
+        out, ref, msg=f"composite_tiles C={ti.n_color} stop={stop}", **TOL)
+    early = int((nch < chunks_walked(ti)).sum())
+    return float((out - ref).abs().max()), nch, early
+
+
+# d_isect's row groups (ops/cuda/composite.py's row layout), each held to
+# the gradient tolerance scaled by its own max |ref|.
+ISECT_GROUPS = (("mean", 0, 2), ("conic", 2, 5), ("depth, plane", 5, 8),
+                ("opacity", 8, 9), ("normal", 9, 12), ("colour", 12, None))
+
+
+def check_tiles_bwd(args, what) -> float:
+    """Kernel 6 against its plain version on the arguments ``args`` within
+    the gradient tolerance per row group, 0 in the padding rows, and the
+    same bits on a second launch.  Returns the max abs difference."""
+    got = composite.composite_tiles_bwd_call(*args)
+    again = composite.composite_tiles_bwd_call(*args)
+    ref = composite.composite_tiles_bwd_plain(*args)
+    n_color = args[7]
+    rows = 12 + n_color
+    err = max(assert_grad_close(
+        got[a:b or rows], ref[a:b or rows],
+        f"composite_tiles_bwd {what} C={n_color} d_isect[{name}]")
+        for name, a, b in ISECT_GROUPS)
+    if not torch.equal(got, again):
+        raise AssertionError("composite_tiles_bwd: two launches differ")
+    if bool(got[rows:].any()):
+        raise AssertionError("composite_tiles_bwd: nonzero padding rows")
+    return err
+
+
+def tiles_pairs(ti, nchunks):
+    """(pixel, slot) pairs of the chunks the forward ran: inside the
+    segments, and of those the pairs whose alpha passes the cutoff."""
+    valid = live = 0
+    lane = torch.arange(composite.CHUNK, device=ti.isect.device)
+    for ci in range(ti.max_chunks):
+        t = torch.nonzero(nchunks > ci)[:, 0]
+        for s in range(0, t.shape[0], 256):
+            tt = t[s:s + 256]
+            cols = ti.starts[tt].long()[:, None] + ci * composite.CHUNK + lane
+            b = ti.isect[:9][:, cols]                     # [9, Tg, CHUNK]
+            inside = (ci * composite.CHUNK + lane)[None] < ti.lens[tt, None]
+            up, vp = compositing.pixel_centers(tt, ti.ntx, TS)
+            alpha = compositing.splat_alpha(
+                up[:, :, None] - b[0][:, None], vp[:, :, None] - b[1][:, None],
+                b[2:5].permute(1, 2, 0)[:, None], b[8][:, None],
+                inside[:, None])
+            valid += TS * TS * int(inside.sum())
+            live += int((alpha > 0).sum())
+    return valid, live
+
+
+def composite_tiles_bound(ti, nchunks):
+    """Bytes: the 12 + C rows of the chunks the kernel ran read once,
+    starts and lens read, the packed maps and nchunks written once.
+    Operations, counted on this run's data: 23 float32 operations of alpha
+    and depth per (pixel, slot) pair inside a segment of those chunks, and
+    11 + 2(C + 3) more (transmittance, weight, value FMAs, median and
+    maximum weight) per pair whose alpha passes the cutoff."""
+    t, c = ti.lens.shape[0], ti.n_color
+    cols = composite.CHUNK * int(nchunks.sum())
+    nbytes = 4 * ((12 + c) * cols + 2 * t + 1 + t * TS * TS * (c + 6) + t)
+    valid, live = tiles_pairs(ti, nchunks)
+    return bound(nbytes, 23 * valid + (11 + 2 * (c + 3)) * live)
+
+
+def composite_tiles_bwd_bound(ti, nchunks):
+    """Bytes: the 12 + C rows of the chunks the forward ran read once and
+    their gradient written once, the cotangents, starts, lens and nchunks
+    read once.  Operations, counted on this run's data: the 23 of alpha and
+    depth per (pixel, slot) pair inside a segment of those chunks, and
+    37 + 4(C + 3) more per pair whose alpha passes the cutoff (as for
+    kernel 3, with V = C + 3 values)."""
+    t, c = ti.lens.shape[0], ti.n_color
+    cols = composite.CHUNK * int(nchunks.sum())
+    nbytes = 4 * (2 * (12 + c) * cols + t * TS * TS * (c + 6) + 3 * t + 1)
+    valid, live = tiles_pairs(ti, nchunks)
+    return bound(nbytes, 23 * valid + (37 + 4 * (c + 3)) * live)
+
+
+def tiles_parity(name, scene):
+    """Kernels 5 and 6 against their plain versions at the scene's shapes,
+    at C = 3 and 16 and stop_threshold 0 and 1e-4 (the backward on the
+    1e-4 forward's nchunks).  Returns the C = 3 inputs, the max abs errors
+    and the early exits at 1e-4."""
+    params, alive, cams, cfg = scene
+    ti3, ti16 = tiles_inputs(params, alive, cams[0], cfg)
+    errs = {"composite_tiles": 0.0, "composite_tiles_bwd": 0.0}
+    early = {}
+    for ti in (ti3, ti16):
+        for stop in (0.0, 1e-4):
+            err, nch, n_early = check_tiles_fwd(ti, stop)
+            errs["composite_tiles"] = max(errs["composite_tiles"], err)
+            if stop == 0.0 and n_early:
+                raise AssertionError(f"composite_tiles {name}: {n_early} "
+                                     "tiles ended early at stop 0")
+        early[ti.n_color] = n_early
+        errs["composite_tiles_bwd"] = max(
+            errs["composite_tiles_bwd"],
+            check_tiles_bwd(ti.bwd_args(nch, 3), name))
+    say(f"parity {name}: composite_tiles max abs err "
+        f"{errs['composite_tiles']:.3g} (maps; nchunks equal) at C=3 and 16, "
+        f"stop 0 and 1e-4; tiles ending early at 1e-4: {early[3]} (C=3), "
+        f"{early[16]} (C=16) of {ti3.lens.shape[0]}; composite_tiles_bwd "
+        f"max abs err {errs['composite_tiles_bwd']:.3g} (gradient tolerance "
+        f"per row group, repeat bit-identical); max_chunks "
+        f"{ti3.max_chunks}, M={ti3.isect.shape[1]}")
+    return ti3, errs, early[3]
+
+
+def check_pallas_vs_xla(name, scene):
+    """The ``backend="pallas"`` render against the ``"xla"`` render of the
+    scene's first camera: at stop_threshold 0 every map within the JAX
+    package's own tolerance between the two (tests/test_pallas.py:42-43:
+    atol 2e-6, depth 1e-4), at 1e-4 colour and alpha within 2e-4
+    (:59-64)."""
+    params, alive, cams, cfg = scene
+    args = (params["means"], params["quats"],
+            gaussians.activated_scales(params),
+            gaussians.activated_opacity(params, alive),
+            rade_gs.compute_colors(params, cams[0], 0, cfg), cams[0])
+    ref, _ = rasterize.render_tiled(*args, cfg.render, alive_mask=alive)
+    errs = {}
+    for stop, maps in ((0.0, {"color": 2e-6, "alpha": 2e-6, "normal": 2e-6,
+                               "median_depth": 2e-6, "depth": 1e-4}),
+                       (1e-4, {"color": 2e-4, "alpha": 2e-4})):
+        got, _ = rasterize.render_tiled_pallas(
+            *args, dataclasses.replace(cfg.render, stop_threshold=stop),
+            alive_mask=alive)
+        for k, atol in maps.items():
+            a, b = getattr(got, k), getattr(ref, k)
+            errs[(stop, k)] = float((a - b).abs().max())
+            torch.testing.assert_close(
+                a, b, rtol=1e-7, atol=atol,
+                msg=f"{name}: pallas vs xla {k} at stop {stop}")
+    say(f"pallas vs xla render {name}: max abs err at stop 0 "
+        + ", ".join(f"{k} {v:.3g}" for (s, k), v in errs.items() if s == 0)
+        + "; at stop 1e-4 "
+        + ", ".join(f"{k} {v:.3g}" for (s, k), v in errs.items() if s > 0))
+
+
+def projector(params, alive, cam, opts):
+    """The render's projection layer as a function of nothing, and the
+    activated opacities it takes."""
     opac = gaussians.activated_opacity(params, alive)
     scales = gaussians.activated_scales(params)
     viewmat = cam.viewmat()
@@ -444,6 +678,14 @@ def layer_times(params, alive, cam, cfg, step=0):
             radius_clip=opts.radius_clip, opacities=opac)
         return proj._replace(valid=proj.valid & alive)
 
+    return project, opac
+
+
+def layer_times(params, alive, cam, cfg, step=0):
+    """Median ms of each layer of one render at ``step``, called in the
+    order ``ops/rasterize.py::render_tiled`` calls them."""
+    opts = cfg.render
+    project, opac = projector(params, alive, cam, opts)
     proj = project()
     op = opac * proj.compensation
     colors = rade_gs.compute_colors(params, cam, step, cfg)
@@ -478,6 +720,48 @@ def layer_times(params, alive, cam, cfg, step=0):
     }
 
 
+def pallas_layer_times(params, alive, cam, cfg, step=0):
+    """Median ms of each layer of one ``backend="pallas"`` render at
+    ``step``, called in the order ``ops/rasterize.py::render_tiled_pallas``
+    calls them."""
+    opts = cfg.render
+    project, opac = projector(params, alive, cam, opts)
+    proj = project()
+    op = opac * proj.compensation
+    colors = rade_gs.compute_colors(params, cam, step, cfg)
+
+    def binning():
+        return tiles.bin_gaussians(proj, cam.width, cam.height, opts, op)
+
+    bins = binning()
+
+    def align():
+        return tiles.align_segments(bins.starts, bins.sorted_gid,
+                                    composite.CHUNK)
+
+    gid, starts, lens, valid = align()
+
+    def pack():
+        return rasterize.pack_intersections(proj, op, colors, proj.normal,
+                                            gid, valid)
+
+    isect = pack()
+    k_cap = opts.tile_capacity or tiles.default_tile_capacity(
+        alive.shape[0])
+    args = (isect, starts, lens, bins.num_tiles_x, TS, colors.shape[1], NEAR,
+            opts.stop_threshold, -(-k_cap // composite.CHUNK))
+    return {
+        "colors": median_ms(
+            lambda: rade_gs.compute_colors(params, cam, step, cfg)),
+        "projection": median_ms(project),
+        "binning (plan, decode, sort, windows)": median_ms(binning),
+        "align segments": median_ms(align),
+        "pack (gather)": median_ms(pack),
+        "composite_tiles": median_ms(
+            lambda: composite.composite_tiles_fwd(*args)),
+    }
+
+
 def check_outputs(name, out, cam):
     for k in KEYS:
         x = out[k]
@@ -492,11 +776,13 @@ def check_outputs(name, out, cam):
         raise AssertionError(f"{name}: nothing was rendered")
 
 
-def reference_check(dev):
+def reference_check(dev, backend="xla", max_intersections=None):
     """The whole render on the card (kernels) against the same small scene
     rendered on the CPU (plain versions), within rtol/atol 1e-5."""
     params, alive, cams, cfg = make_scene("flagship", dev, n=3000,
                                           width=128, height=96)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, backend=backend, max_intersections=max_intersections))
     cam = cams[0]
     got, _ = render(params, alive, cam, cfg)
     cpu_cam = dataclasses.replace(cam, K=cam.K.cpu(), c2w=cam.c2w.cpu())
@@ -506,11 +792,19 @@ def reference_check(dev):
         torch.testing.assert_close(got[k].cpu(), ref[k],
                                    msg=f"card vs CPU {k}", **TOL)
     err = max(float((got[k].cpu() - ref[k]).abs().max()) for k in KEYS)
-    say(f"reference: 3000 Gaussians at 128x96, card (kernels) vs CPU "
-        f"(plain versions): max abs err {err:.3g}")
+    say(f"reference ({backend}): 3000 Gaussians at 128x96, "
+        f"{max_intersections or 'default'} intersection slots, card "
+        f"(kernels) vs CPU (plain versions): max abs err {err:.3g}")
 
 
-def train_reference_check(dev):
+def sink_shape(cam, n, opts):
+    """The screen-space sink's shape for the render options' backend."""
+    shape = rasterize.pallas_sink_shape if opts.backend == "pallas" \
+        else rasterize.absgrad_sink_shape
+    return shape(cam.width, cam.height, n, opts)
+
+
+def train_reference_check(dev, backend="xla"):
     """One train step's loss and gradients on the card (kernels) against
     the same step on the CPU (plain versions), within the gradient
     tolerance: 3000 Gaussians at 128x96, sh_degree 3 with every band live,
@@ -519,7 +813,7 @@ def train_reference_check(dev):
                                         height=96, sh_degree=3)
     cfg = rade_gs.RadeGSConfig(
         sh_degree=3, sh_degree_interval=1, background="black",
-        render=RenderOptions(rasterize_mode="antialiased"))
+        render=RenderOptions(rasterize_mode="antialiased", backend=backend))
     image = torch.rand((96, 128, 3),
                        generator=torch.Generator().manual_seed(4))
 
@@ -529,9 +823,8 @@ def train_reference_check(dev):
         p = {k: v.detach().to(device).requires_grad_(True)
              for k, v in params.items()}
         al = alive.to(device)
-        sink = torch.zeros(rasterize.absgrad_sink_shape(
-            128, 96, al.shape[0], cfg.render), device=device,
-            requires_grad=True)
+        sink = torch.zeros(sink_shape(cam, al.shape[0], cfg.render),
+                           device=device, requires_grad=True)
         out, _ = rade_gs.get_outputs(p, al, cam, 3, cfg, training=True,
                                      compute_error_maps=True,
                                      absgrad_sink=sink)
@@ -545,22 +838,26 @@ def train_reference_check(dev):
     err = max(assert_grad_close(a, b, f"card vs CPU gradient {name}")
               for a, b, name in zip(grads, ref_grads,
                                     list(params) + ["sink"]))
-    say(f"reference: one train step, 3000 Gaussians at 128x96, card "
+    say(f"reference ({backend}): one train step, 3000 Gaussians at 128x96, "
+        f"card "
         f"(kernels) vs CPU (plain versions): loss {float(loss):.6f} vs "
         f"{float(ref_loss):.6f}, gradients of {len(grads)} tensors within "
         f"the gradient tolerance (max abs err {err:.3g})")
 
 
-def training_setup(dev):
-    """A trainer on the bench scene at full width: the ground truth is the
-    bench scene with sh_degree 3 (every band live from step 3), its renders
-    on four orbit cameras are the images, and training starts from a
-    perturbed copy (means, colours; 5% of the rows five times larger and 5%
-    faint, so that the refine pass splits and culls)."""
+def training_setup(dev, backend="xla", refine_every=REFINE_EVERY,
+                   reg_from=REG_FROM):
+    """A trainer on the bench scene at full width with the given
+    compositor: the ground truth is the bench scene with sh_degree 3 (every
+    band live from step 3), its renders on four orbit cameras are the
+    images, and training starts from a perturbed copy (means, colours; 5%
+    of the rows five times larger and 5% faint, so that the refine pass
+    splits and culls)."""
     params, alive, cams, cfg = make_scene("bench", dev, sh_degree=3)
     model = rade_gs.RadeGSConfig(
         sh_degree=3, sh_degree_interval=1, background="random",
-        render=cfg.render, regularization_from_iter=REG_FROM)
+        render=dataclasses.replace(cfg.render, backend=backend),
+        regularization_from_iter=reg_from)
     with torch.no_grad():
         images = [rade_gs.get_outputs(params, alive, c, 3, model,
                                       training=False)[0]["rgb"]
@@ -584,7 +881,7 @@ def training_setup(dev):
     conf = TrainerConfig(
         model=model, max_iterations=1000, seed=0,
         strategy=strategy.StrategyConfig(warmup_length=4,
-                                         refine_every=REFINE_EVERY))
+                                         refine_every=refine_every))
     return Trainer(conf, cams, images, init,
                    torch.arange(cap, device=dev) < n, device=dev)
 
@@ -592,22 +889,28 @@ def training_setup(dev):
 def counts():
     return {"decode": binning_kernel.launches, "composite": batched.launches,
             "composite_bwd": batched.bwd_launches,
-            "segment_sum": segsum_kernel.launches}
+            "segment_sum": segsum_kernel.launches,
+            "composite_tiles": composite.launches,
+            "composite_tiles_bwd": composite.bwd_launches}
 
 
-def train_main_path(tr):
-    """The training main path: TRAIN_STEPS steps with every launch count at
-    0 just before and read just after.  Returns (history, host ms per step,
-    launches)."""
+def reset_counts():
+    binning_kernel.launches = segsum_kernel.launches = 0
+    batched.launches = batched.bwd_launches = 0
+    composite.launches = composite.bwd_launches = 0
+
+
+def train_main_path(tr, steps, refine_at):
+    """A training main path: ``steps`` steps with every launch count at 0
+    just before and read just after; the opacity reset after step
+    refine_every, the refine pass after step ``refine_at``.  Returns
+    (history, host ms per step, launches)."""
     scfg = tr.config.strategy
     reset_at = scfg.refine_every
-    refine_at = 2 * scfg.refine_every
     logit_cap = math.log(0.2 / 0.8)
     hist, ms = [], []
-    binning_kernel.launches = 0
-    batched.launches = batched.bwd_launches = 0
-    segsum_kernel.launches = 0
-    for _ in range(TRAIN_STEPS):
+    reset_counts()
+    for _ in range(steps):
         if tr.step == refine_at - 1:
             # The reference threshold is in the NDC units of real captures;
             # on this random scene the refine pass densifies the 1% of
@@ -631,15 +934,17 @@ def train_main_path(tr):
     return hist, ms, launches
 
 
-def check_training(hist, launches, refine_at):
+def check_training(hist, launches, refine_at, reg_from, per_step):
+    """Finite losses, the depth-normal phase from ``reg_from``, the launch
+    counts ``per_step`` times the steps, and a refine pass that duplicated,
+    split and culled."""
     steps = len(hist)
     for i, h in enumerate(hist):
         if not math.isfinite(h["loss"]) or h["nonfinite_grad"] != 0:
             raise AssertionError(f"train step {i}: {h}")
-        if ("depth_normal_loss" in h) != (i >= REG_FROM):
+        if ("depth_normal_loss" in h) != (i >= reg_from):
             raise AssertionError(f"train step {i}: depth-normal phase")
-    want = {"decode": steps, "composite": steps, "composite_bwd": steps,
-            "segment_sum": 2 * steps}
+    want = {k: per_step.get(k, 0) * steps for k in launches}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{want} in {steps} steps")
@@ -729,17 +1034,35 @@ def fitting_run(dev):
         raise AssertionError("fitting run: PSNR rose by less than 3 dB")
 
 
+@contextlib.contextmanager
+def captured_tiles_bwd():
+    """Collects the arguments of every kernel 6 call made inside the block
+    (under autograd: the step's own packed matrix, nchunks and loss
+    cotangent)."""
+    seen, real = [], composite.composite_tiles_bwd_call
+
+    def call(*args):
+        seen.append(args)
+        return real(*args)
+
+    composite.composite_tiles_bwd_call = call
+    try:
+        yield seen
+    finally:
+        composite.composite_tiles_bwd_call = real
+
+
 def train_layer_times(tr):
     """Card time of each layer of one train step on camera 0 (median of
-    REPS CUDA-event timings), and the kernels' inputs at the step's
-    shapes."""
+    REPS CUDA-event timings), and the backward kernels' inputs at the
+    step's shapes, for the trainer's compositor."""
     cfg = tr.config.model
+    pallas = cfg.render.backend == "pallas"
     params, alive, cam, image = tr.params, tr.alive, tr.cameras[0], \
         tr.images[0]
     leaves = list(params.values())
-    sink = torch.zeros(rasterize.absgrad_sink_shape(
-        cam.width, cam.height, alive.shape[0], cfg.render),
-        device=cam.K.device, requires_grad=True)
+    sink = torch.zeros(sink_shape(cam, alive.shape[0], cfg.render),
+                       device=cam.K.device, requires_grad=True)
 
     def forward():
         return rade_gs.get_outputs(
@@ -754,48 +1077,70 @@ def train_layer_times(tr):
                                 reg_active=True)[0]
 
     loss = loss_fn()
-    grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True)
+    with captured_tiles_bwd() as seen:
+        grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True)
     out = {
         "forward (render, error maps)": median_ms(forward),
-        **{f"forward: {k}": v for k, v in layer_times(
-            params, alive, cam, cfg, tr.step).items()},
+        **{f"forward: {k}": v for k, v in (
+            pallas_layer_times if pallas else layer_times)(
+                params, alive, cam, cfg, tr.step).items()},
         "loss": median_ms(loss_fn),
         "backward (autograd.grad)": median_ms(lambda: torch.autograd.grad(
             loss, leaves + [sink], retain_graph=True)),
     }
-    # The kernels of the backward, alone, on the step's windows.
-    opac = gaussians.activated_opacity(params, alive).detach()
-    proj = meta.proj
-    if cfg.render.rasterize_mode == "antialiased":
-        opac = opac * proj.compensation.detach()
-    colors = rade_gs.compute_colors(params, cam, tr.step, cfg).detach()
-    g = rasterize.window_rows(meta.bins, rasterize.pack_per_gauss(
-        type(proj)(*(x.detach() for x in proj)), opac, proj.normal.detach(),
-        colors))
-    mask = meta.bins.tile_mask.to(torch.float32)
-    ntx = meta.bins.num_tiles_x
-    fwd = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
-                                        bank_prefix=True)
-    bargs = bwd_inputs(g, mask, ntx, fwd, seed=6)
-    out["composite_bwd kernel"] = median_ms(
-        lambda: batched.composite_batched_bwd(*bargs))
+    # The kernels of the backward, alone, on the step's inputs.
     n = alive.shape[0]
-    idx, sorted_ids, order, rows = segsum_inputs(meta.bins, n, g.shape[2], 7)
+    if pallas:
+        if len(seen) != 1:
+            raise AssertionError(f"pallas train step: {len(seen)} "
+                                 "composite_tiles_bwd calls in a backward")
+        # The step's own inputs: isect (with the sink), nchunks and the
+        # loss's cotangent of the packed maps.
+        bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                      for a in seen[0])
+        nch = bargs[4]
+        ti = TilesInputs(*bargs[:4], bargs[7], bargs[9])
+        bwd = "composite_tiles_bwd kernel"
+        out[bwd] = median_ms(
+            lambda: composite.composite_tiles_bwd_call(*bargs))
+        idx = segsum.spread_masked(meta.aligned_gid, meta.aligned_valid, n)
+        d = ti.isect.shape[0]
+        kernels = {"tiles": ti, "nchunks": nch, "bwd_args": bargs}
+        update = strategy.update_state_from_isect
+    else:
+        opac = gaussians.activated_opacity(params, alive).detach()
+        proj = meta.proj
+        if cfg.render.rasterize_mode == "antialiased":
+            opac = opac * proj.compensation.detach()
+        colors = rade_gs.compute_colors(params, cam, tr.step, cfg).detach()
+        g = rasterize.window_rows(meta.bins, rasterize.pack_per_gauss(
+            type(proj)(*(x.detach() for x in proj)), opac,
+            proj.normal.detach(), colors))
+        mask = meta.bins.tile_mask.to(torch.float32)
+        ntx = meta.bins.num_tiles_x
+        fwd = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
+                                            bank_prefix=True)
+        bargs = bwd_inputs(g, mask, ntx, fwd, seed=6)
+        bwd = "composite_bwd kernel"
+        out[bwd] = median_ms(lambda: batched.composite_batched_bwd(*bargs))
+        idx = window_idx(meta.bins, n)
+        d = g.shape[2]
+        kernels = {"g": g, "mask": mask, "ntx": ntx, "bwd_args": bargs}
+        update = strategy.update_state
+    sorted_ids, order, rows = segsum_inputs(idx, d, 7)
     out["segment-sum sort"] = median_ms(lambda: torch.sort(idx, stable=True))
     out["segment_sum kernel"] = median_ms(
         lambda: segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n))
-    out["rest of the backward"] = (out["backward (autograd.grad)"]
-                                   - out["composite_bwd kernel"]
+    out["rest of the backward"] = (out["backward (autograd.grad)"] - out[bwd]
                                    - out["segment-sum sort"]
                                    - out["segment_sum kernel"])
-    out["statistics (update_state)"] = median_ms(
-        lambda: strategy.update_state(tr.strat_state, meta, grads[-1]))
+    out[f"statistics ({update.__name__})"] = median_ms(
+        lambda: update(tr.strat_state, meta, grads[-1]))
     for p, gr in zip(leaves, grads):
         p.grad = gr
     out["Adam"] = median_ms(tr.optimizer.step)   # moves the parameters
     tr.optimizer.zero_grad(set_to_none=True)
-    kernels = {"g": g, "mask": mask, "ntx": ntx, "bwd_args": bargs,
-               "segsum_args": (sorted_ids, order, rows, n), "idx": idx}
+    kernels.update(segsum_args=(sorted_ids, order, rows, n), idx=idx)
     return out, kernels
 
 
@@ -821,41 +1166,55 @@ def main() -> int:
     scenes = {"flagship": make_scene("flagship", dev),
               "bench": make_scene("bench", dev)}
     inputs = {name: parity(name, sc) for name, sc in scenes.items()}
+    tiles_in = {name: tiles_parity(name, sc) for name, sc in scenes.items()}
+    if not sum(early for _, _, early in tiles_in.values()):
+        raise AssertionError("composite_tiles: no tile ended early at "
+                             "stop_threshold 1e-4")
+    for name, sc in scenes.items():
+        check_pallas_vs_xla(name, sc)
     seg_err = check_segsum(
         render(*scenes["bench"][:2], scenes["bench"][2][0],
                scenes["bench"][3])[1].bins, scenes["bench"][1].shape[0])
     say(f"parity bench: segment_sum max abs err {seg_err:.3g} against its "
         f"plain version (M={3600 * 512}, D=15, N=1000000), repeat "
         f"bit-identical")
-    reference_check(dev)
-    train_reference_check(dev)
+    for backend in ("xla", "pallas"):
+        reference_check(dev, backend)
+        train_reference_check(dev, backend)
+    # A global buffer that is not a multiple of the per-tile compositor's
+    # chunk, so neither is the aligned matrix's width.
+    reference_check(dev, "pallas", max_intersections=30_000)
 
-    # Main path 1, the forward render, with every launch count at 0 just
-    # before it.
-    binning_kernel.launches = 0
-    batched.launches = 0
-    outs = {name: [render(p, a, cam, cfg)[0] for cam in cams]
-            for name, (p, a, cams, cfg) in scenes.items()}
-    torch.cuda.synchronize()
-    render_launches = {"decode": binning_kernel.launches,
-                       "composite": batched.launches}
-    n_renders = sum(len(o) for o in outs.values())
-    for kernel, n in render_launches.items():
-        if n != n_renders:
-            raise AssertionError(f"{kernel}: {n} launches in {n_renders} "
-                                 "renders of the main path")
-    say(f"main path (render): {n_renders} renders, launches "
-        f"{render_launches}")
-    for name, (params, _, cams, _) in scenes.items():
-        for i, (out, cam) in enumerate(zip(outs[name], cams)):
-            check_outputs(f"{name} camera {i}", out, cam)
-        spilled = [int(o["spilled"]) for o in outs[name]]
-        cover = [round(float((o["accumulation"] > 0).float().mean()), 4)
-                 for o in outs[name]]
-        say(f"{name}: {len(cams)} camera(s) at {cams[0].width}x"
-            f"{cams[0].height}, {params['means'].shape[0]} Gaussians: "
-            f"spilled {spilled}, covered pixel share {cover}")
-    del outs
+    # Main paths 1 and 3, the forward render with each compositor, with
+    # every launch count at 0 just before each.
+    pallas_scenes = {name: (p, a, cams, pallas_config(cfg))
+                     for name, (p, a, cams, cfg) in scenes.items()}
+    for backend, path_scenes, per_render in (
+            ("xla", scenes, {"decode": 1, "composite": 1}),
+            ("pallas", pallas_scenes, {"decode": 1, "composite_tiles": 1})):
+        reset_counts()
+        outs = {name: [render(p, a, cam, cfg)[0] for cam in cams]
+                for name, (p, a, cams, cfg) in path_scenes.items()}
+        torch.cuda.synchronize()
+        render_launches = counts()
+        n_renders = sum(len(o) for o in outs.values())
+        want = {k: per_render.get(k, 0) * n_renders for k in render_launches}
+        if render_launches != want:
+            raise AssertionError(f"render ({backend}): launches "
+                                 f"{render_launches}, expected {want}")
+        say(f"main path (render, {backend}): {n_renders} renders, launches "
+            f"{render_launches}")
+        for name, (params, _, cams, _) in path_scenes.items():
+            for i, (out, cam) in enumerate(zip(outs[name], cams)):
+                check_outputs(f"{name} camera {i} ({backend})", out, cam)
+            spilled = [int(o["spilled"]) for o in outs[name]]
+            cover = [round(float((o["accumulation"] > 0).float().mean()), 4)
+                     for o in outs[name]]
+            say(f"{name} ({backend}): {len(cams)} camera(s) at "
+                f"{cams[0].width}x{cams[0].height}, "
+                f"{params['means'].shape[0]} Gaussians: spilled {spilled}, "
+                f"covered pixel share {cover}")
+        del outs
 
     # The train step's layers and backward kernels, at the main path's
     # shapes, on the trainer's first state (put back afterwards).
@@ -867,9 +1226,10 @@ def main() -> int:
     tr.load_state(start)
 
     # Main path 2, the training step at the bench scene's width.
-    hist, step_ms, launches = train_main_path(tr)
     refine_at = 2 * REFINE_EVERY
-    check_training(hist, launches, refine_at)
+    hist, step_ms, launches = train_main_path(tr, TRAIN_STEPS, refine_at)
+    check_training(hist, launches, refine_at, REG_FROM, {
+        "decode": 1, "composite": 1, "composite_bwd": 1, "segment_sum": 2})
     say(f"main path (training): {len(hist)} steps of the bench scene "
         f"(1M Gaussians, 1280x720, sh_degree 3, random background), "
         f"launches {launches}; losses "
@@ -895,6 +1255,58 @@ def main() -> int:
         f"max {max(refine_ms):.4f}; the train step that ran the refine took "
         f"{step_ms[refine_at - 1]:.4f} ms (host clock)")
     fitting_run(dev)
+    del tr, start
+    torch.cuda.empty_cache()
+
+    # Main path 4, the training step with the per-tile compositor, at the
+    # same width; its layers and kernel 6's inputs first, on the trainer's
+    # first state.
+    tr = training_setup(dev, "pallas", PALLAS_REFINE_EVERY, PALLAS_REG_FROM)
+    start = tr.state()
+    tr.step = 3
+    player, pkin = train_layer_times(tr)
+    tr.load_state(start)
+    # Kernels 5 and 6 against their plain versions on the step's own
+    # inputs, kernel 6 with the loss's cotangent.
+    step_errs = {"composite_tiles_bwd": check_tiles_bwd(
+        pkin["bwd_args"], "pallas train step")}
+    step_errs["composite_tiles"], step_nch, _ = check_tiles_fwd(
+        pkin["tiles"], tr.config.model.render.stop_threshold)
+    if not torch.equal(step_nch, pkin["nchunks"]):
+        raise AssertionError("composite_tiles: the step's nchunks differ "
+                             "from a second forward's")
+    say(f"parity pallas train step (bench scene camera 0, step inputs): "
+        f"composite_tiles max abs err {step_errs['composite_tiles']:.3g} "
+        f"(nchunks equal), composite_tiles_bwd on the loss's cotangent max "
+        f"abs err {step_errs['composite_tiles_bwd']:.3g} (gradient "
+        f"tolerance per row group, repeat bit-identical); "
+        f"{int(pkin['nchunks'].sum())} of "
+        f"{int(chunks_walked(pkin['tiles']).sum())} chunks run")
+    prefine_at = PALLAS_REFINE_AT
+    phist, pstep_ms, plaunches = train_main_path(tr, PALLAS_STEPS,
+                                                 prefine_at)
+    check_training(phist, plaunches, prefine_at, PALLAS_REG_FROM, {
+        "decode": 1, "composite_tiles": 1, "composite_tiles_bwd": 1,
+        "segment_sum": 2})
+    say(f"main path (training, pallas): {len(phist)} steps of the bench "
+        f"scene (1M Gaussians, 1280x720, sh_degree 3, random background, "
+        f"stop_threshold {tr.config.model.render.stop_threshold}), launches "
+        f"{plaunches}; losses "
+        + ", ".join(f"{h['loss']:.5f}" for h in phist)
+        + f"; PSNR {phist[0]['psnr']:.2f} -> {phist[-1]['psnr']:.2f} dB")
+    r = phist[prefine_at - 1]
+    say(f"refine (pallas) after step {prefine_at}: dup {r['refine_dup']}, "
+        f"split {r['refine_split']}, cull {r['refine_cull']}, dropped "
+        f"{r['refine_dropped']}; Gaussians {r['num_gaussians']} -> "
+        f"{phist[-1]['num_gaussians']}, capacity {tr.alive.shape[0]}; "
+        f"opacity reset after step {PALLAS_REFINE_EVERY}; depth-normal loss "
+        f"from step {PALLAS_REG_FROM}")
+    say(f"train step (pallas, host clock, bench scene): median "
+        f"{statistics.median(pstep_ms):.4f} ms over {len(pstep_ms)} steps, "
+        f"min {min(pstep_ms):.4f}, max {max(pstep_ms):.4f}")
+    check_determinism(tr)
+    del tr, start
+    torch.cuda.empty_cache()
 
     records = {}
     for name, (params, alive, cams, cfg) in scenes.items():
@@ -922,6 +1334,24 @@ def main() -> int:
             "composite_bound": composite_bound(g, mask, ntx),
             "errs": errs,
         }
+        # Kernel 5 at the main path's C = 3 and stop_threshold.
+        ti, terrs, _ = tiles_in[name]
+        stop = pallas_scenes[name][3].render.stop_threshold
+        _, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
+        pcfg = pallas_scenes[name][3]
+        rec.update({
+            "composite_tiles_ms": median_ms(
+                lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
+            "composite_tiles_plain_ms": median_ms(
+                lambda: composite.composite_tiles_fwd_plain(
+                    *ti.fwd_args(stop))),
+            "composite_tiles_bound": composite_tiles_bound(ti, nch),
+            "pallas_render_ms": timings(
+                lambda: render(params, alive, cams[next(turn) % len(cams)],
+                               pcfg),
+                host_clock=True, reps=RENDER_REPS),
+        })
+        rec["errs"].update(terrs)
         records[name] = rec
         layers = layer_times(params, alive, cams[0], cfg)
         say(f"layers {name} camera 0 (median of {REPS}, ms): "
@@ -936,10 +1366,23 @@ def main() -> int:
             f"{rec['composite_plain_ms']:.4f} ms, bound "
             f"{rec['composite_bound'][0]:.4f} ms by "
             f"{rec['composite_bound'][1]}")
-        r = rec["render_ms"]
-        say(f"render {name} (host clock, {len(r)} calls cycling the "
-            f"cameras): median {statistics.median(r):.4f} ms per camera, "
-            f"min {min(r):.4f}, max {max(r):.4f}")
+        players = pallas_layer_times(params, alive, cams[0],
+                                     pallas_scenes[name][3])
+        say(f"layers {name} camera 0, pallas (median of {REPS}, ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in players.items())
+            + f"; sum {sum(players.values()):.4f}")
+        say(f"time {name}: composite_tiles kernel (C=3, stop "
+            f"{stop}, median of {REPS}) {rec['composite_tiles_ms']:.4f} ms, "
+            f"plain {rec['composite_tiles_plain_ms']:.4f} ms, bound "
+            f"{rec['composite_tiles_bound'][0]:.4f} ms by "
+            f"{rec['composite_tiles_bound'][1]}; {int(nch.sum())} of "
+            f"{int(chunks_walked(ti).sum())} chunks run")
+        for backend, key in (("xla", "render_ms"),
+                             ("pallas", "pallas_render_ms")):
+            r = rec[key]
+            say(f"render {name} ({backend}, host clock, {len(r)} calls "
+                f"cycling the cameras): median {statistics.median(r):.4f} ms "
+                f"per camera, min {min(r):.4f}, max {max(r):.4f}")
 
     say(f"layers of the train step, bench scene camera 0 (median of {REPS}, "
         f"ms): " + ", ".join(f"{k} {v:.4f}" for k, v in tlayers.items()))
@@ -974,9 +1417,30 @@ def main() -> int:
         f"{b['segment_sum_library_ms']:.4f} ms, bound "
         f"{b['segment_sum_bound'][0]:.4f} ms by {b['segment_sum_bound'][1]} "
         f"(M={m}, D={d}, N={sargs[3]})")
+    say(f"layers of the pallas train step, bench scene camera 0 (median of "
+        f"{REPS}, ms): " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in player.items()))
+    bt = pkin["bwd_args"]
+    b.update({
+        "composite_tiles_bwd_ms": player["composite_tiles_bwd kernel"],
+        "composite_tiles_bwd_plain_ms": median_ms(
+            lambda: composite.composite_tiles_bwd_plain(*bt)),
+        "composite_tiles_bwd_bound": composite_tiles_bwd_bound(
+            pkin["tiles"], pkin["nchunks"]),
+    })
+    say(f"time pallas train step kernel (bench scene): composite_tiles_bwd "
+        f"kernel {b['composite_tiles_bwd_ms']:.4f} ms, plain "
+        f"{b['composite_tiles_bwd_plain_ms']:.4f} ms (median of {REPS} "
+        f"each), bound "
+        f"{b['composite_tiles_bwd_bound'][0]:.4f} ms by "
+        f"{b['composite_tiles_bwd_bound'][1]} "
+        f"({int(pkin['nchunks'].sum())} chunks)")
 
     # The kernels line, at the bench scene's shapes (the full-size paths);
-    # launches from the training main path, which runs all four.
+    # launches from the training main paths: kernels 1-4 from path 2,
+    # kernels 5 and 6 from path 4.
+    launches.update({k: plaunches[k] for k in ("composite_tiles",
+                                               "composite_tiles_bwd")})
     kernels = []
     for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",
@@ -986,15 +1450,20 @@ def main() -> int:
             ("composite_bwd", "composite_batched_bwd", "batched_bwd.cu",
              "batched_bwd.py:187", None),
             ("segment_sum", "segment_sum_sorted", "segsum_kernel.cu",
-             "segsum_kernel.py:99", "segment_sum_library_ms")):
+             "segsum_kernel.py:99", "segment_sum_library_ms"),
+            ("composite_tiles", "composite_tiles_fwd", "composite_fwd.cu",
+             "composite.py:557", None),
+            ("composite_tiles_bwd", "composite_tiles_bwd_call",
+             "composite_bwd.cu", "composite.py:624", None)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"collab_splats_tpu_torch/csrc/{src}",
             "replaces": f"collab_splats_tpu/ops/pallas/{tpu}",
             "launches": launches[key],
             "max_abs_err": (max(seg_err, *seg_errs) if key == "segment_sum"
-                            else max(r["errs"][key]
-                                     for r in records.values())),
+                            else max(step_errs.get(key, 0.0),
+                                     *(r["errs"][key]
+                                       for r in records.values()))),
             "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],
             "bound_ms": b[f"{key}_bound"][0],
             "bound_by": b[f"{key}_bound"][1],

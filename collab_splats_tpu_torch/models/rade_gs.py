@@ -4,8 +4,8 @@ Counterpart of the JAX package's ``models/rade_gs.py``: colours from SH,
 one tiled render, background blend, the reference's output dict with the
 two depth->normal error maps, and the loss (L1 + SSIM, optional scale
 regularization, the depth-normal consistency term from
-``regularization_from_iter``).  The ``backend="pallas"`` renderer comes
-with a later slice.
+``regularization_from_iter``).  ``config.render.backend`` picks the
+renderer: ``render_tiled`` ("xla") or ``render_tiled_pallas`` ("pallas").
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from ..core.cameras import Camera, depth_pair_to_normal
 from ..core.options import RenderOptions
 from ..core.sh import eval_sh
-from ..ops.rasterize import RenderMeta, render_tiled
+from ..ops.rasterize import RenderMeta, render_tiled, render_tiled_pallas
 from ..train import losses
 from .gaussians import GaussianParams, activated_opacity, activated_scales
 
@@ -104,7 +104,8 @@ def get_outputs(
     normals ([0, 1]-mapped), background, spilled, plus "features" when
     latent_dim > 0 and, with ``compute_error_maps``, the two depth-normal
     error maps [H, W, 1].  ``absgrad_sink`` is the rasterizer's
-    screen-space sink (``ops/rasterize.py::absgrad_sink_shape``).
+    screen-space sink (``ops/rasterize.py::absgrad_sink_shape``, or
+    ``pallas_sink_shape`` for the "pallas" backend).
     ``crop_box`` ([2, 3] world-space min/max corners) keeps only the
     Gaussians inside the box.
     """
@@ -114,7 +115,9 @@ def get_outputs(
                            dim=-1)
         alive = alive & inside
     colors = compute_colors(params, camera, step, config)
-    out, meta = render_tiled(
+    render = render_tiled_pallas if config.render.backend == "pallas" \
+        else render_tiled
+    out, meta = render(
         params["means"], params["quats"], activated_scales(params),
         activated_opacity(params, alive), colors, camera, config.render,
         absgrad_sink=absgrad_sink, alive_mask=alive.to(torch.bool),

@@ -19,12 +19,12 @@ import torch
 from ...core.compositing import (G_VALS, PREFIX_BATCH, fused_backward,
                                  fused_forward)
 from . import build
+from .build import KERNEL_TILE_SIZE, check_tensor
 
 launches = 0       # forward kernel launches since the caller last reset it
 bwd_launches = 0   # backward kernel launches since the caller last reset it
 
 KERNEL_VALUE_CHANNELS = (6, 19)   # normal ++ RGB, normal ++ RGB ++ 13 latents
-KERNEL_TILE_SIZE = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,14 +47,6 @@ def _bwd_fn():
     return fn
 
 
-def _check(name, x, shape, dtype, device):
-    if x.shape != shape or x.dtype != dtype or x.device != device \
-            or not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous {dtype} "
-                         f"{list(shape)} on {device}, got {x.dtype} "
-                         f"{list(x.shape)} on {x.device}")
-
-
 def _check_rows(name, g, mask, ts):
     """(T, K, V) of the window rows g [T, K, 9 + V] and mask [T, K]."""
     if g.dim() != 3 or g.dtype != torch.float32 or not g.is_contiguous():
@@ -68,7 +60,7 @@ def _check_rows(name, g, mask, ts):
     if ts != KERNEL_TILE_SIZE:
         raise ValueError(f"{name}: tile size {ts}; the kernel runs "
                          f"{KERNEL_TILE_SIZE}x{KERNEL_TILE_SIZE} tiles")
-    _check(f"{name}: mask", mask, (t, k), torch.float32, g.device)
+    check_tensor(f"{name}: mask", mask, (t, k), torch.float32, g.device)
     return t, k, v
 
 
@@ -132,14 +124,15 @@ def composite_batched_bwd(g: torch.Tensor, mask: torch.Tensor,
     t, k, v = _check_rows("composite_batched_bwd", g, mask, ts)
     p = ts * ts
     dev = g.device
-    _check("composite_batched_bwd: prefix", prefix,
-           (-(-k // PREFIX_BATCH), t, p), torch.float32, dev)
-    _check("composite_batched_bwd: g_v", g_v, (t, p, v), torch.float32, dev)
+    check_tensor("composite_batched_bwd: prefix", prefix,
+                 (-(-k // PREFIX_BATCH), t, p), torch.float32, dev)
+    check_tensor("composite_batched_bwd: g_v", g_v, (t, p, v), torch.float32,
+                 dev)
     for name, x in (("g_alpha", g_alpha), ("g_depth", g_depth),
                     ("g_med", g_med), ("t_total", t_total)):
-        _check(f"composite_batched_bwd: {name}", x, (t, p), torch.float32,
-               dev)
-    _check("composite_batched_bwd: idx", idx, (t, p), torch.int32, dev)
+        check_tensor(f"composite_batched_bwd: {name}", x, (t, p),
+                     torch.float32, dev)
+    check_tensor("composite_batched_bwd: idx", idx, (t, p), torch.int32, dev)
     d_g = torch.empty_like(g)
     if t == 0:
         return d_g

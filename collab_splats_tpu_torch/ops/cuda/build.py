@@ -19,11 +19,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("binning_kernel", "batched_fwd", "batched_bwd", "segsum_kernel")
+SOURCES = ("binning_kernel", "batched_fwd", "batched_bwd", "segsum_kernel",
+           "composite_fwd", "composite_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The compositing kernels run one thread per pixel of a 16x16 tile.
+KERNEL_TILE_SIZE = 16
 
 
 def _nvcc() -> str:
@@ -83,6 +86,16 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_tensor(name, x, shape, dtype, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``, as a kernel's C interface takes it."""
+    if x.shape != shape or x.dtype != dtype or x.device != device \
+            or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dtype} "
+                         f"{list(shape)} on {device}, got {x.dtype} "
+                         f"{list(x.shape)} on {x.device}")
 
 
 def check(rc: int, name: str) -> None:

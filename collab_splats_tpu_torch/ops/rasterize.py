@@ -1,13 +1,23 @@
 """Tiled rasterizer: projection -> binning -> compositing -> maps.
 
-Counterpart of the JAX package's ``ops/rasterize.py`` (its fused-compositor
-branch).  Projection and binning are dense tensor code; the window gather
-is one row gather of the packed per-gaussian matrix (with a sorted
-segment-sum backward, ``ops/segsum.py``); compositing is the batched
-compositor of ``ops/cuda/batched.py`` (the CUDA kernels on the card, the
-plain versions on the CPU) over every tile at once, forward and backward.
-An optional additive screen-space sink on the window rows' means collects
-the per-(tile, slot) mean gradient that densification reads.
+Counterpart of the JAX package's ``ops/rasterize.py``.  Projection and
+binning are dense tensor code shared by both compositors, which
+``RenderOptions.backend`` selects:
+
+* ``"xla"`` (:func:`render_tiled`, the JAX fused-compositor branch): one
+  row gather of the packed per-gaussian matrix into [T, K] tile windows
+  (with a sorted segment-sum backward, ``ops/segsum.py``), then the
+  batched compositor of ``ops/cuda/batched.py`` over every tile at once;
+* ``"pallas"`` (:func:`render_tiled_pallas`): the sorted intersection list
+  re-laid into CHUNK-aligned tile segments, one gather into the packed
+  per-intersection matrix [D, M] (:func:`pack_intersections`, the same
+  segment-sum backward), then the per-tile compositor of
+  ``ops/cuda/composite.py`` with its tile-wide early exit.
+
+The CUDA kernels run on the card and their plain versions on the CPU.  An
+optional additive screen-space sink on the means collects the mean
+gradient that densification reads: per (tile, window slot) for ``"xla"``,
+per intersection for ``"pallas"``.
 """
 
 from __future__ import annotations
@@ -21,8 +31,10 @@ from ..core.golden import RenderOutput
 from ..core.options import RenderOptions
 from ..core.projection import Projection, project_gaussians
 from .cuda.batched import composite
+from .cuda.composite import CHUNK, composite_tiles
 from .segsum import expand_rows, spread_masked
-from .tiles import TileBins, bin_gaussians, default_tile_capacity
+from .tiles import (TileBins, align_segments, bin_gaussians,
+                    default_max_intersections, default_tile_capacity)
 
 # Packed per-gaussian column layout shared by every compositing path.
 PG_MEAN2D = slice(0, 2)
@@ -57,6 +69,25 @@ def window_rows(bins: TileBins, per_gauss: torch.Tensor) -> torch.Tensor:
         num_tiles, k_cap, per_gauss.shape[1])
 
 
+def pack_intersections(proj: Projection, opac: torch.Tensor,
+                       colors: torch.Tensor, normal_cam: torch.Tensor,
+                       sorted_gid: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """The packed per-intersection matrix [D, M] of the per-tile compositor
+    (row layout in ``ops/cuda/composite.py``): the PG_* columns of each
+    intersection's gaussian, padded to a multiple of 8 rows as in the JAX
+    package.  The gather is :func:`expand_rows`, so its backward is the
+    sorted segment sum; slots where ``valid`` is False (the alignment
+    padding, id 0 in the JAX package) gather spread-out rows instead, which
+    the compositor masks and whose cotangents are exactly 0."""
+    per_gauss = pack_per_gauss(proj, opac, normal_cam, colors)
+    pad = (-per_gauss.shape[1]) % 8
+    if pad:
+        per_gauss = torch.nn.functional.pad(per_gauss, (0, pad))
+    idx = spread_masked(sorted_gid, valid, per_gauss.shape[0])
+    return expand_rows(per_gauss, idx).T.contiguous()
+
+
 def absgrad_sink_shape(width: int, height: int, n: int,
                        opts: RenderOptions) -> tuple[int, int, int]:
     """Shape [T, K, 2] of the screen-space sink of a render of ``n``
@@ -67,36 +98,37 @@ def absgrad_sink_shape(width: int, height: int, n: int,
     return (ntx * nty, k, 2)
 
 
+def pallas_sink_shape(width: int, height: int, n: int,
+                      opts: RenderOptions) -> tuple[int, int]:
+    """Shape [2, M + T * CHUNK] of the per-intersection sink of a
+    ``backend="pallas"`` render of ``n`` Gaussians: one (u, v) per slot of
+    the aligned intersection list (:func:`~.tiles.align_segments`)."""
+    m = opts.max_intersections or default_max_intersections(n)
+    ts = opts.tile_size
+    num_tiles = (-(-width // ts)) * (-(-height // ts))
+    return (2, m + num_tiles * CHUNK)
+
+
 class RenderMeta(NamedTuple):
-    """Side information of a render (the gsplat ``info`` dict's content)."""
+    """Side information of a render (the gsplat ``info`` dict's content).
+
+    ``aligned_gid`` and ``aligned_valid`` ([M + T * CHUNK]) describe the
+    aligned intersection list of a ``backend="pallas"`` render: each slot's
+    gaussian (0 in the padding, as in the JAX package) and whether the slot
+    is a real intersection."""
 
     proj: Projection
     bins: TileBins
     width: int
     height: int
+    aligned_gid: Optional[torch.Tensor] = None
+    aligned_valid: Optional[torch.Tensor] = None
 
 
-def render_tiled(
-    means: torch.Tensor,
-    quats: torch.Tensor,
-    scales: torch.Tensor,
-    opacities: torch.Tensor,
-    colors: torch.Tensor,
-    camera: Camera,
-    opts: RenderOptions = RenderOptions(),
-    normals_world: Optional[torch.Tensor] = None,
-    absgrad_sink: Optional[torch.Tensor] = None,
-    alive_mask: Optional[torch.Tensor] = None,
-) -> tuple[RenderOutput, RenderMeta]:
-    """Render one camera with the tiled rasterizer.
-
-    ``colors`` is [N, C] with SH already evaluated; ``alive_mask`` ([N]
-    bool) removes dead capacity-padding rows from binning; ``absgrad_sink``
-    (zeros of :func:`absgrad_sink_shape`) is added to the window rows'
-    2D means, so its gradient is the per-(tile, slot) mean gradient.
-    Returns (RenderOutput with [H, W, ...] maps and no background,
-    RenderMeta).
-    """
+def _project(means, quats, scales, opacities, camera, opts, normals_world,
+             alive_mask):
+    """(projection, compositing opacity, camera-space normals) of a
+    render."""
     viewmat = camera.viewmat()
     proj = project_gaussians(
         means, quats, scales, viewmat, camera.K, camera.width, camera.height,
@@ -113,8 +145,98 @@ def render_tiled(
         normal_cam = normals_world @ viewmat[:3, :3].T
     else:
         normal_cam = proj.normal
+    return proj, opac, normal_cam
+
+
+def render_tiled(
+    means: torch.Tensor,
+    quats: torch.Tensor,
+    scales: torch.Tensor,
+    opacities: torch.Tensor,
+    colors: torch.Tensor,
+    camera: Camera,
+    opts: RenderOptions = RenderOptions(),
+    normals_world: Optional[torch.Tensor] = None,
+    absgrad_sink: Optional[torch.Tensor] = None,
+    alive_mask: Optional[torch.Tensor] = None,
+) -> tuple[RenderOutput, RenderMeta]:
+    """Render one camera with the tiled rasterizer's batched compositor.
+
+    ``colors`` is [N, C] with SH already evaluated; ``alive_mask`` ([N]
+    bool) removes dead capacity-padding rows from binning; ``absgrad_sink``
+    (zeros of :func:`absgrad_sink_shape`) is added to the window rows'
+    2D means, so its gradient is the per-(tile, slot) mean gradient.
+    Returns (RenderOutput with [H, W, ...] maps and no background,
+    RenderMeta).
+    """
+    proj, opac, normal_cam = _project(means, quats, scales, opacities,
+                                      camera, opts, normals_world,
+                                      alive_mask)
     return render_from_projections(proj, opac, colors, normal_cam, camera,
                                    opts, absgrad_sink=absgrad_sink)
+
+
+def render_tiled_pallas(
+    means: torch.Tensor,
+    quats: torch.Tensor,
+    scales: torch.Tensor,
+    opacities: torch.Tensor,
+    colors: torch.Tensor,
+    camera: Camera,
+    opts: RenderOptions = RenderOptions(),
+    normals_world: Optional[torch.Tensor] = None,
+    absgrad_sink: Optional[torch.Tensor] = None,
+    alive_mask: Optional[torch.Tensor] = None,
+) -> tuple[RenderOutput, RenderMeta]:
+    """Render one camera with the per-tile compositor.
+
+    Same contract as :func:`render_tiled`, except that ``absgrad_sink`` is
+    per intersection: zeros of :func:`pallas_sink_shape`, added to the
+    packed 2D-mean rows, so its gradient is the per-(tile, splat) mean
+    gradient (``train/strategy.py::update_state_from_isect`` reads it).
+    A tile ends once every pixel's transmittance is below
+    ``opts.stop_threshold`` (0: never early).
+    """
+    proj, opac, normal_cam = _project(means, quats, scales, opacities,
+                                      camera, opts, normals_world,
+                                      alive_mask)
+    # The [T, K] windows are not composited on this path; binning still
+    # builds them, and their spill count is replaced below.
+    bins = bin_gaussians(proj, camera.width, camera.height, opts,
+                         opacities=opac.detach())
+    ts = opts.tile_size
+    n_color = colors.shape[-1]
+    aligned_gid, aligned_starts, lens, valid = align_segments(
+        bins.starts, bins.sorted_gid, CHUNK)
+    isect = pack_intersections(proj, opac, colors, normal_cam, aligned_gid,
+                               valid)
+    if absgrad_sink is not None:
+        isect[:2] += absgrad_sink
+    k_cap = opts.tile_capacity or default_tile_capacity(means.shape[0])
+    max_chunks = max(-(-k_cap // CHUNK), 1)
+    packed = composite_tiles(isect, aligned_starts, lens, bins.num_tiles_x,
+                             ts, n_color, opts.near_plane,
+                             opts.stop_threshold, max_chunks)
+    color = packed[..., :n_color]
+    normal = packed[..., n_color:n_color + 3]
+    alpha = packed[..., n_color + 3]
+    depth_sum = packed[..., n_color + 4]
+    median = packed[..., n_color + 5]
+    if opts.normalize_depth:
+        depth = depth_sum / torch.clamp(alpha, min=1e-10)
+    else:
+        depth = depth_sum
+    out, meta = _stitch_outputs(color, alpha, depth, median, normal, bins,
+                                proj, camera, ts)
+    # bins.spilled counts what the K-slot windows cut; this compositor cuts
+    # at max_chunks * CHUNK (>= K) instead, so that term is swapped for the
+    # compositor's own.
+    tile_spill = torch.clamp(lens - k_cap, min=0).sum()
+    kernel_spill = torch.clamp(lens - max_chunks * CHUNK, min=0).sum() \
+        - tile_spill
+    out = out._replace(spilled=bins.spilled + kernel_spill.to(torch.int32))
+    meta = meta._replace(aligned_gid=aligned_gid, aligned_valid=valid)
+    return out, meta
 
 
 def render_from_projections(

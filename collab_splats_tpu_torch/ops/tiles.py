@@ -51,6 +51,41 @@ def default_tile_capacity(n: int) -> int:
     return cap
 
 
+def align_segments(bounds: torch.Tensor, sorted_gid: torch.Tensor,
+                   chunk: int):
+    """Re-lay the sorted intersection list so that every tile's segment
+    starts on a ``chunk`` boundary (the per-tile compositor walks whole
+    chunks).
+
+    Args:
+        bounds: [T+1] int32 tight segment bounds into ``sorted_gid``.
+        sorted_gid: [M] int32 gaussian ids sorted by (tile, depth).
+        chunk: the alignment quantum (``ops/cuda/composite.py::CHUNK``).
+
+    Returns:
+        (aligned_gid [M + T*chunk] int32, aligned_starts [T+1] int32, all
+        multiples of ``chunk``, lens [T] int32 true segment lengths, valid
+        [M + T*chunk] bool).  The first three are the JAX function's
+        outputs: padding slots (``valid`` False) hold id 0.
+    """
+    num_tiles = bounds.shape[0] - 1
+    m = sorted_gid.shape[0]
+    dev = bounds.device
+    lens = bounds[1:] - bounds[:-1]
+    padded = (lens + chunk - 1) // chunk * chunk
+    aligned_starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                                torch.cumsum(padded, 0).to(torch.int32)])
+    slots = torch.arange(m + num_tiles * chunk, dtype=torch.int32,
+                         device=dev)
+    t = torch.clamp(torch.searchsorted(aligned_starts, slots, right=True)
+                    - 1, 0, num_tiles - 1)
+    r = slots - aligned_starts[t]
+    valid = r < lens[t]
+    src = torch.clamp(bounds[t] + r, 0, m - 1)
+    aligned_gid = torch.where(valid, sorted_gid[src], torch.zeros_like(r))
+    return aligned_gid, aligned_starts, lens, valid
+
+
 def tile_bbox(proj: Projection, num_tiles_x: int, num_tiles_y: int,
               tile_size: int):
     """Inclusive int32 tile bbox (tx0, ty0, tx1, ty1) per Gaussian, from the

@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``train/strategy.py`` (gsplat's
 
 * accumulate per-Gaussian screen-space gradient statistics every step
   (absolute values of the per-(tile, slot) mean gradients, recovered from
-  the rasterizer's additive sink, summed per Gaussian by the sorted
-  segment sum of ``ops/segsum.py``: no float atomics);
+  the rasterizer's additive sink, per window slot or, for a
+  ``backend="pallas"`` render, per intersection, summed per Gaussian by
+  the sorted segment sum of ``ops/segsum.py``: no float atomics);
 * every ``refine_every`` steps inside the densification window duplicate
   small high-gradient Gaussians, split large ones into ``n_split_samples``
   resampled children, cull transparent or oversized ones;
@@ -106,6 +107,21 @@ def update_state(state: StrategyState, meta: RenderMeta,
     g = torch.abs(sink_grad).reshape(-1, 2)
     g = torch.where(mask[:, None], g, torch.zeros_like(g))
     idx = spread_masked(meta.bins.tile_gauss.reshape(-1), mask, c)
+    return _accumulate(state, meta, segment_sum(idx, g, c))
+
+
+def update_state_from_isect(state: StrategyState, meta: RenderMeta,
+                            sink_grad: torch.Tensor) -> StrategyState:
+    """:func:`update_state` for a ``backend="pallas"`` render, whose sink
+    gradient is per intersection: [2, M] over the aligned intersection list
+    (``meta.aligned_gid``).  Padding slots are masked out and spread, and
+    the per-Gaussian sums are the same sorted segment sum (the JAX package
+    scatter-adds)."""
+    c = state.grad_accum.shape[0]
+    valid = meta.aligned_valid
+    g = torch.abs(sink_grad).T
+    g = torch.where(valid[:, None], g, torch.zeros_like(g))
+    idx = spread_masked(meta.aligned_gid, valid, c)
     return _accumulate(state, meta, segment_sum(idx, g, c))
 
 

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``train/trainer.py``.  One step renders a
 camera, takes the loss and its backward (the rasterizer's screen-space sink
 rides the same backward), zeroes the gradients of dead capacity rows,
 skips the update when any gradient is not finite, and otherwise runs the
-per-group Adam and accumulates the densification statistics.  Around it,
+per-group Adam and accumulates the densification statistics (per window
+slot, or per intersection with ``backend="pallas"``).  Around it,
 the host-side schedule of the reference: refine every ``refine_every``
 steps inside the densification window, reset opacities periodically,
 depth-normal loss from ``regularization_from_iter``, capacity growth ahead
@@ -29,7 +30,7 @@ import torch
 from ..core.cameras import Camera
 from ..models import rade_gs
 from ..models.gaussians import GaussianParams, grow_capacity, num_alive
-from ..ops.rasterize import absgrad_sink_shape
+from ..ops.rasterize import absgrad_sink_shape, pallas_sink_shape
 from ..utils.device import resolve_device
 from . import losses, optim, strategy
 
@@ -130,8 +131,10 @@ class Trainer:
         cfg = self.config.model
         params, alive = self.params, self.alive
         cap = alive.shape[0]
-        sink = torch.zeros(absgrad_sink_shape(camera.width, camera.height,
-                                              cap, cfg.render),
+        pallas = cfg.render.backend == "pallas"
+        sink_shape = pallas_sink_shape if pallas else absgrad_sink_shape
+        sink = torch.zeros(sink_shape(camera.width, camera.height, cap,
+                                      cfg.render),
                            device=self.device, requires_grad=True)
         outputs, meta = rade_gs.get_outputs(
             params, alive, camera, self.step, cfg,
@@ -163,8 +166,9 @@ class Trainer:
             self.optimizer.step()
             self.scheduler.step()
             self.optimizer.zero_grad(set_to_none=True)
-            self.strat_state = strategy.update_state(self.strat_state, meta,
-                                                     sink_grad)
+            update = strategy.update_state_from_isect if pallas \
+                else strategy.update_state
+            self.strat_state = update(self.strat_state, meta, sink_grad)
         rgb = outputs["rgb"].detach()
         return {
             "nonfinite_grad": (~finite).to(torch.float32),

@@ -37,8 +37,9 @@ def port_modules():
 def test_every_module_imports_without_jax():
     mods = port_modules()
     assert "collab_splats_tpu_torch.ops.cuda.batched" in mods
-    for m in ("ops.cuda.segsum_kernel", "train.losses", "train.optim",
-              "train.strategy", "train.trainer"):
+    for m in ("ops.cuda.segsum_kernel", "ops.cuda.composite",
+              "train.losses", "train.optim", "train.strategy",
+              "train.trainer"):
         assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]

@@ -6,8 +6,11 @@ loss and its gradients with respect to every parameter and to the
 rasterizer's screen-space sink are held against ``jax.value_and_grad`` of
 the JAX trainer's ``loss_fn`` (train/trainer.py:181-220), with the
 depth-normal phase off and on (scale regularization on, at a step where
-it applies).  Then three Adam steps against optax, and the densification
-statistics' update against JAX's.
+it applies), with the batched compositor (``backend="xla"``) and with the
+per-tile one (``backend="pallas"``, JAX's Pallas kernels in interpret
+mode, its per-intersection sink).  Then three Adam steps against optax,
+and the densification statistics' update (``update_state``, or
+``update_state_from_isect`` for "pallas") against JAX's.
 
 Tolerances: the loss within rtol 1e-5; gradients within rtol 5e-4 and
 atol 5e-5 * max|g| (tests/test_pallas.py:205-206); Adam, fed the same
@@ -24,13 +27,13 @@ import torch
 
 from collab_splats_tpu.core.options import RenderOptions as JOpts
 from collab_splats_tpu.models import rade_gs as jrade
-from collab_splats_tpu.ops.rasterize import absgrad_sink_shape as jsink_shape
+from collab_splats_tpu.ops import rasterize as jrast
 from collab_splats_tpu.train import optim as joptim
 from collab_splats_tpu.train import strategy as jstrategy
 from collab_splats_tpu_torch.core.options import RenderOptions as TOpts
 from collab_splats_tpu_torch.models import rade_gs as trade
 from collab_splats_tpu_torch.models.gaussians import params_from_numpy
-from collab_splats_tpu_torch.ops.rasterize import absgrad_sink_shape
+from collab_splats_tpu_torch.ops import rasterize as trast
 from collab_splats_tpu_torch.train import optim as toptim
 from collab_splats_tpu_torch.train import strategy as tstrategy
 from test_torch_core import both_cameras, numpy_scene
@@ -41,11 +44,25 @@ OPTS = dict(rasterize_mode="antialiased", tile_capacity=128,
             max_intersections=1 << 14)
 
 
-def configs(reg):
+def configs(reg, backend):
     kw = dict(sh_degree=3, background="black", use_scale_regularization=reg,
               use_depth_normal_loss=True)
-    return (jrade.RadeGSConfig(render=JOpts(**OPTS), **kw),
-            trade.RadeGSConfig(render=TOpts(**OPTS), **kw))
+    pallas = backend == "pallas"
+    return (jrade.RadeGSConfig(render=JOpts(backend=backend,
+                                            pallas_interpret=pallas, **OPTS),
+                               **kw),
+            trade.RadeGSConfig(render=TOpts(backend=backend, **OPTS), **kw))
+
+
+def sink_shape(module, backend, cfg):
+    shape = module.pallas_sink_shape if backend == "pallas" \
+        else module.absgrad_sink_shape
+    return shape(SIZE, SIZE, N, cfg.render)
+
+
+def update(module, backend):
+    return module.update_state_from_isect if backend == "pallas" \
+        else module.update_state
 
 
 def assert_grad_close(a, b, name):
@@ -63,9 +80,9 @@ def scene():
     return p, K, c2w, image
 
 
-def jax_step(scene, reg):
+def jax_step(scene, reg, backend):
     p, K, c2w, image = scene
-    jcfg, _ = configs(reg)
+    jcfg, _ = configs(reg, backend)
     jcam, _ = both_cameras(K, c2w, SIZE, SIZE)
     alive = jnp.ones(N, bool)
 
@@ -82,21 +99,20 @@ def jax_step(scene, reg):
         return jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True)(
             params, sink)
 
-    sink = jnp.zeros(jsink_shape(SIZE, SIZE, N, jcfg.render), jnp.float32)
+    sink = jnp.zeros(sink_shape(jrast, backend, jcfg), jnp.float32)
     (loss, (ldict, meta)), (pg, sg) = value_and_grad(
         {k: jnp.asarray(v) for k, v in p.items()}, sink)
     return loss, ldict, meta, pg, sg
 
 
-def port_step(scene, reg):
+def port_step(scene, reg, backend):
     p, K, c2w, image = scene
-    _, tcfg = configs(reg)
+    _, tcfg = configs(reg, backend)
     _, tcam = both_cameras(K, c2w, SIZE, SIZE)
     alive = torch.ones(N, dtype=torch.bool)
     params = {k: v.requires_grad_(True)
               for k, v in params_from_numpy(p, device="cpu").items()}
-    sink = torch.zeros(absgrad_sink_shape(SIZE, SIZE, N, tcfg.render),
-                       requires_grad=True)
+    sink = torch.zeros(sink_shape(trast, backend, tcfg), requires_grad=True)
     outputs, meta = trade.get_outputs(
         params, alive, tcam, STEP, tcfg, training=True,
         compute_error_maps=reg, absgrad_sink=sink)
@@ -106,15 +122,17 @@ def port_step(scene, reg):
     return loss, ldict, meta, dict(zip(params, grads[:-1])), grads[-1]
 
 
-@pytest.fixture(scope="module", params=[False, True],
-                ids=["reg_off", "reg_on"])
+@pytest.fixture(scope="module", params=[
+    (False, "xla"), (True, "xla"), (False, "pallas"), (True, "pallas")],
+    ids=["reg_off", "reg_on", "pallas-reg_off", "pallas-reg_on"])
 def steps(request, scene):
-    return request.param, jax_step(scene, request.param), \
-        port_step(scene, request.param)
+    reg, backend = request.param
+    return (reg, backend), jax_step(scene, reg, backend), \
+        port_step(scene, reg, backend)
 
 
 def test_loss_terms_match(steps):
-    reg, (jloss, jdict, *_), (tloss, tdict, *_) = steps
+    (reg, _), (jloss, jdict, *_), (tloss, tdict, *_) = steps
     assert set(tdict) == set(jdict)
     assert ("depth_normal_loss" in tdict) == reg
     assert ("scale_reg" in tdict) == reg
@@ -142,13 +160,13 @@ def test_sink_gradient_matches(steps):
 
 
 def test_update_state_matches(steps):
-    _, (_, _, jmeta, _, jsink), (_, _, tmeta, _, tsink) = steps
+    (_, backend), (_, _, jmeta, _, jsink), (_, _, tmeta, _, tsink) = steps
     rng = np.random.default_rng(13)
     init = [rng.uniform(0, 1, N).astype(np.float32) for _ in range(3)]
-    jst = jstrategy.update_state(
+    jst = update(jstrategy, backend)(
         jstrategy.StrategyState(*(jnp.asarray(x) for x in init)), jmeta,
         jsink)
-    tst = tstrategy.update_state(
+    tst = update(tstrategy, backend)(
         tstrategy.StrategyState(*(torch.from_numpy(x) for x in init)),
         tmeta, tsink)
     assert_grad_close(tst.grad_accum.numpy(), np.asarray(jst.grad_accum),
