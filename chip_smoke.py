@@ -2,9 +2,10 @@
 
 Builds the port's six CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the per-tile
-pair at C = 3 and 16 colour channels and stop_threshold 0 and 1e-4), and
-the ``backend="pallas"`` render against the ``"xla"`` render.  Then it
-drives the port's four main paths:
+pair at C = 3 and 16 colour channels and stop_threshold 0 and 1e-4; the
+sorted segment sum also on a skewed id stream: one id owning 2^17 rows, a
+run of 120,000 ids owning none), and the ``backend="pallas"`` render
+against the ``"xla"`` render.  Then it drives the port's four main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -20,7 +21,11 @@ drives the port's four main paths:
    reading ``update_state_from_isect``, and a repeated step.
 
 It checks what comes out, the kernels each path launches, and prints
-per-layer and per-kernel timings.
+per-layer and per-kernel timings: a kernel, its plain version and a library
+call are timed on the card alone (``kernel_ms``), the segment sum at the
+expand_rows backward's D = 15 rows and the statistic's D = 2 rows, each
+beside ``index_add_``; with the share of (warp, slot) pairs in which the
+compositing backward finds a live pixel.
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -74,6 +79,7 @@ PALLAS_REFINE_EVERY = 4
 PALLAS_REFINE_AT = 12
 FIT_STEPS = 300
 RENDER_REPS = 30   # the host-clock render time spreads more than a kernel's
+SPIN_CYCLES = 1_000_000   # the card's lead over the host in kernel_ms
 TS = 16
 NEAR = RenderOptions().near_plane
 KEYS = ("rgb", "depth", "median_depth", "normals", "accumulation")
@@ -92,13 +98,19 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def timings(fn, host_clock=False, reps=REPS):
+def timings(fn, host_clock=False, reps=REPS, device_only=False):
     """``reps`` synchronised timings of ``fn`` in ms, after one warm-up:
-    CUDA events around a kernel, the host clock around a whole render."""
+    CUDA events around a layer or a kernel, the host clock around a whole
+    render.  With ``device_only`` the card first spins for about half a
+    millisecond, so that ``fn``'s launches are queued before the start
+    event runs and the time between the events is the card's alone, not
+    the host's time to reach the launch."""
     fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         if host_clock:
             t0 = time.perf_counter()
             fn()
@@ -117,6 +129,12 @@ def timings(fn, host_clock=False, reps=REPS):
 
 def median_ms(fn, host_clock=False, reps=REPS):
     return statistics.median(timings(fn, host_clock, reps))
+
+
+def kernel_ms(fn, reps=REPS):
+    """Median card time of ``fn`` (a kernel, its plain version or a library
+    call), without the host's time to launch it."""
+    return statistics.median(timings(fn, reps=reps, device_only=True))
 
 
 def assert_grad_close(got, ref, what):
@@ -253,10 +271,17 @@ DG_GROUPS = (("mean", 0, 2), ("conic", 2, 5), ("depth, plane", 5, 8),
 
 
 def check_composite_bwd(g, mask, ntx, fwd, seed) -> float:
-    """The backward kernel against the plain backward within the gradient
-    tolerance for each column group, exactly 0 at masked slots, and the
-    same bits on a second launch.  Returns the max abs difference."""
-    args = bwd_inputs(g, mask, ntx, fwd, seed)
+    """The backward kernel against the plain backward on the forward
+    outputs ``fwd`` with seeded cotangents (see check_composite_bwd_args)."""
+    return check_composite_bwd_args(bwd_inputs(g, mask, ntx, fwd, seed))
+
+
+def check_composite_bwd_args(args) -> float:
+    """The backward kernel on its arguments ``args`` against the plain
+    backward within the gradient tolerance for each column group, exactly 0
+    at masked slots, and the same bits on a second launch.  Returns the max
+    abs difference."""
+    g, mask, ntx = args[0], args[1], args[9]
     got = batched.composite_batched_bwd(*args)
     again = batched.composite_batched_bwd(*args)
     ref = compositing.fused_backward(g, mask, args[7], args[8], *args[3:7],
@@ -310,6 +335,52 @@ def check_segsum_rows(sorted_ids, order, rows, n, what) -> float:
 def check_segsum(bins, n, d=15) -> float:
     sorted_ids, order, rows = segsum_inputs(window_idx(bins, n), d, seed=5)
     return check_segsum_rows(sorted_ids, order, rows, n, f"D={d}")
+
+
+# A skewed id stream at the xla train step's size: one gaussian that owns
+# 2^17 rows, a run of ids that own none, the last id owned, and an M that
+# is no multiple of a block.
+SKEW_N, SKEW_M = 1_262_144, 3600 * 512 + 77
+SKEW_LONG, SKEW_EMPTY = (5, 1 << 17), (400_000, 520_000)
+
+
+def skewed_ids(dev) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(9)
+    idx = torch.randint(0, SKEW_N, (SKEW_M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    lo, hi = SKEW_EMPTY
+    idx = torch.where((idx >= lo) & (idx < hi), idx - (hi - lo), idx)
+    idx[-1000:-900] = SKEW_N - 1
+    gid, count = SKEW_LONG
+    idx[:count] = gid
+    return idx
+
+
+def check_segsum_skewed(dev) -> float:
+    """Kernel 4 on the skewed stream at D = 15 and D = 2 against its plain
+    version, with a bit-identical repeat."""
+    idx = skewed_ids(dev)
+    sorted_ids, order = torch.sort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=SKEW_N)
+    lo, hi = SKEW_EMPTY
+    if not (int(counts[SKEW_LONG[0]]) >= SKEW_LONG[1]
+            and int(counts[lo:hi].sum()) == 0 and int(counts[-1]) > 0):
+        raise AssertionError("skewed segment-sum stream is not skewed")
+    errs, same = [], []
+    for d in (15, 2):
+        gen = torch.Generator(device=dev).manual_seed(10 + d)
+        rows = torch.randn((SKEW_M, d), generator=gen, device=dev)
+        errs.append(check_segsum_rows(sorted_ids, order, rows, SKEW_N,
+                                      f"skewed D={d}"))
+        same.append(torch.equal(
+            segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, SKEW_N),
+            segsum_kernel.segment_sum_plain(sorted_ids, order, rows, SKEW_N)))
+    say(f"parity skewed stream: segment_sum at N={SKEW_N}, M={SKEW_M}, one "
+        f"id owning {int(counts.max())} rows, ids {lo}..{hi - 1} owning none, "
+        f"id N-1 owning {int(counts[-1])}: max abs err {max(errs):.3g} at "
+        f"D=15 and D=2, bit-identical to the plain version {same}, repeats "
+        f"bit-identical")
+    return max(errs)
 
 
 def check_segsum_step(tr) -> float:
@@ -399,20 +470,35 @@ def decode_bound(plan):
     return bound(nbytes, 60 * live if d.cull is not None else 0)
 
 
-def live_pairs(g, mask, ntx) -> int:
-    """(pixel, window slot) pairs whose alpha passes the cutoff."""
-    live = 0
+def tile_alphas(g, mask, ntx):
+    """Each (pixel, window slot) pair's alpha, [Tc, P, K] for 64 tiles at
+    a time, zero where it does not pass the cutoff."""
     for s in range(0, g.shape[0], 64):
         gg = g[s:s + 64]
         up, vp = compositing.pixel_centers(
             torch.arange(s, s + gg.shape[0], device=g.device), ntx, TS)
-        alpha = compositing.splat_alpha(
+        yield compositing.splat_alpha(
             up[:, :, None] - gg[:, None, :, 0],
             vp[:, :, None] - gg[:, None, :, 1],
             gg[:, None, :, 2:5], gg[:, None, :, 8],
             mask[s:s + 64, None, :] > 0)
-        live += int((alpha > 0).sum())
-    return live
+
+
+def live_pairs(g, mask, ntx) -> int:
+    """(pixel, window slot) pairs whose alpha passes the cutoff."""
+    return sum(int((a > 0).sum()) for a in tile_alphas(g, mask, ntx))
+
+
+def live_warp_slots(g, mask, ntx):
+    """(warp, window slot) pairs in which some pixel of the warp's 32 passes
+    the alpha cutoff (the pairs kernel 3 reduces over a warp; its warps own
+    8x4 blocks of the tile), and all (warp, masked-in slot) pairs."""
+    live = 0
+    for a in tile_alphas(g, mask, ntx):
+        t, k = a.shape[0], a.shape[2]
+        blocks = (a > 0).reshape(t, 4, 4, 2, 8, k).permute(0, 1, 3, 2, 4, 5)
+        live += int(blocks.reshape(t, 8, 32, k).any(2).sum())
+    return live, TS * TS // 32 * int((mask > 0).sum())
 
 
 def composite_bound(g, mask, ntx):
@@ -1101,7 +1187,7 @@ def train_layer_times(tr):
         nch = bargs[4]
         ti = TilesInputs(*bargs[:4], bargs[7], bargs[9])
         bwd = "composite_tiles_bwd kernel"
-        out[bwd] = median_ms(
+        out[bwd] = kernel_ms(
             lambda: composite.composite_tiles_bwd_call(*bargs))
         idx = segsum.spread_masked(meta.aligned_gid, meta.aligned_valid, n)
         d = ti.isect.shape[0]
@@ -1122,20 +1208,28 @@ def train_layer_times(tr):
                                             bank_prefix=True)
         bargs = bwd_inputs(g, mask, ntx, fwd, seed=6)
         bwd = "composite_bwd kernel"
-        out[bwd] = median_ms(lambda: batched.composite_batched_bwd(*bargs))
+        out[bwd] = kernel_ms(lambda: batched.composite_batched_bwd(*bargs))
         idx = window_idx(meta.bins, n)
         d = g.shape[2]
         kernels = {"g": g, "mask": mask, "ntx": ntx, "bwd_args": bargs}
         update = strategy.update_state
     sorted_ids, order, rows = segsum_inputs(idx, d, 7)
     out["segment-sum sort"] = median_ms(lambda: torch.sort(idx, stable=True))
-    out["segment_sum kernel"] = median_ms(
+    out["segment_sum kernel"] = kernel_ms(
         lambda: segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n))
     out["rest of the backward"] = (out["backward (autograd.grad)"] - out[bwd]
                                    - out["segment-sum sort"]
                                    - out["segment_sum kernel"])
     out[f"statistics ({update.__name__})"] = median_ms(
         lambda: update(tr.strat_state, meta, grads[-1]))
+    # The statistic's D = 2 rows: this backward's masked |sink gradient|,
+    # on the same sorted ids.
+    valid = meta.aligned_valid if pallas else meta.bins.tile_mask.reshape(-1)
+    g2 = grads[-1].abs()
+    g2 = g2.T if pallas else g2.reshape(-1, 2)
+    rows2 = torch.where(valid[:, None], g2,
+                        torch.zeros((), device=g2.device)).contiguous()
+    kernels["segsum2_args"] = (sorted_ids, order, rows2, n)
     for p, gr in zip(leaves, grads):
         p.grad = gr
     out["Adam"] = median_ms(tr.optimizer.step)   # moves the parameters
@@ -1178,6 +1272,7 @@ def main() -> int:
     say(f"parity bench: segment_sum max abs err {seg_err:.3g} against its "
         f"plain version (M={3600 * 512}, D=15, N=1000000), repeat "
         f"bit-identical")
+    seg_err = max(seg_err, check_segsum_skewed(dev))
     for backend in ("xla", "pallas"):
         reference_check(dev, backend)
         train_reference_check(dev, backend)
@@ -1224,6 +1319,13 @@ def main() -> int:
     tr.step = 3   # every SH band live
     tlayers, kin = train_layer_times(tr)
     tr.load_state(start)
+    # Kernel 3 against its plain version on the step's own window rows,
+    # mask and banked prefix (seeded cotangents).
+    step_bwd_err = check_composite_bwd_args(kin["bwd_args"])
+    say(f"parity train step: composite_bwd on the step's inputs (T="
+        f"{kin['g'].shape[0]}, K={kin['g'].shape[1]}) max abs err "
+        f"{step_bwd_err:.3g} (gradient tolerance per column group, masked "
+        f"slots 0, repeat bit-identical)")
 
     # Main path 2, the training step at the bench scene's width.
     refine_at = 2 * REFINE_EVERY
@@ -1269,7 +1371,8 @@ def main() -> int:
     # Kernels 5 and 6 against their plain versions on the step's own
     # inputs, kernel 6 with the loss's cotangent.
     step_errs = {"composite_tiles_bwd": check_tiles_bwd(
-        pkin["bwd_args"], "pallas train step")}
+        pkin["bwd_args"], "pallas train step"),
+        "composite_bwd": step_bwd_err}
     step_errs["composite_tiles"], step_nch, _ = check_tiles_fwd(
         pkin["tiles"], tr.config.model.render.stop_threshold)
     if not torch.equal(step_nch, pkin["nchunks"]):
@@ -1313,17 +1416,17 @@ def main() -> int:
         plan, g, mask, ntx, errs = inputs[name]
         turn = iter(range(10 ** 6))
         rec = {
-            "decode_ms": median_ms(
+            "decode_ms": kernel_ms(
                 lambda: binning_kernel.decode_bin_keys(*decode_args(plan))),
-            "decode_plain_ms": median_ms(
+            "decode_plain_ms": kernel_ms(
                 lambda: binning_kernel.decode_keys_plain(*decode_args(plan))),
-            "composite_ms": median_ms(
+            "composite_ms": kernel_ms(
                 lambda: batched.composite_batched_fwd(g, mask, ntx, TS,
                                                       NEAR)),
-            "composite_banked_ms": median_ms(
+            "composite_banked_ms": kernel_ms(
                 lambda: batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
                                                       bank_prefix=True)),
-            "composite_plain_ms": median_ms(
+            "composite_plain_ms": kernel_ms(
                 lambda: compositing.fused_forward(g, mask, ntx, TS, NEAR,
                                                   tile_chunk=256)),
             "render_ms": timings(
@@ -1340,9 +1443,9 @@ def main() -> int:
         _, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
         pcfg = pallas_scenes[name][3]
         rec.update({
-            "composite_tiles_ms": median_ms(
+            "composite_tiles_ms": kernel_ms(
                 lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
-            "composite_tiles_plain_ms": median_ms(
+            "composite_tiles_plain_ms": kernel_ms(
                 lambda: composite.composite_tiles_fwd_plain(
                     *ti.fwd_args(stop))),
             "composite_tiles_bound": composite_tiles_bound(ti, nch),
@@ -1391,7 +1494,7 @@ def main() -> int:
     b = records["bench"]
     b.update({
         "composite_bwd_ms": tlayers["composite_bwd kernel"],
-        "composite_bwd_plain_ms": median_ms(
+        "composite_bwd_plain_ms": kernel_ms(
             lambda: compositing.fused_backward(
                 bargs[0], bargs[1], bargs[7], bargs[8], *bargs[3:7],
                 kin["ntx"], TS, NEAR),
@@ -1399,13 +1502,23 @@ def main() -> int:
         "composite_bwd_bound": composite_bwd_bound(kin["g"], kin["mask"],
                                                    kin["ntx"]),
         "segment_sum_ms": tlayers["segment_sum kernel"],
-        "segment_sum_plain_ms": median_ms(
+        "segment_sum_plain_ms": kernel_ms(
             lambda: segsum_kernel.segment_sum_plain(*sargs)),
-        "segment_sum_library_ms": median_ms(
+        "segment_sum_library_ms": kernel_ms(
             lambda: torch.zeros((sargs[3], d), device=dev).index_add_(
                 0, kin["idx"].long(), sargs[2])),
         "segment_sum_bound": segsum_bound(m, d, sargs[3]),
     })
+    s2 = kin["segsum2_args"]
+    seg2 = {
+        "ms": kernel_ms(lambda: segsum_kernel.segment_sum_sorted(*s2)),
+        "library_ms": kernel_ms(
+            lambda: torch.zeros((s2[3], 2), device=dev).index_add_(
+                0, kin["idx"].long(), s2[2])),
+        "bound": segsum_bound(m, 2, s2[3]),
+    }
+    live, masked_in = live_warp_slots(kin["g"], kin["mask"], kin["ntx"])
+    all_slots = kin["g"].shape[0] * kin["g"].shape[1] * TS * TS // 32
     say(f"time train step kernels (bench scene, median of {REPS}; plain "
         f"backward of {PLAIN_REPS}): composite_bwd kernel "
         f"{b['composite_bwd_ms']:.4f} ms, plain "
@@ -1416,14 +1529,22 @@ def main() -> int:
         f"{b['segment_sum_plain_ms']:.4f} ms, index_add_ "
         f"{b['segment_sum_library_ms']:.4f} ms, bound "
         f"{b['segment_sum_bound'][0]:.4f} ms by {b['segment_sum_bound'][1]} "
-        f"(M={m}, D={d}, N={sargs[3]})")
+        f"(M={m}, D={d}, N={sargs[3]}); at the statistic's D=2 rows "
+        f"segment_sum kernel {seg2['ms']:.4f} ms, index_add_ "
+        f"{seg2['library_ms']:.4f} ms, bound {seg2['bound'][0]:.4f} ms by "
+        f"{seg2['bound'][1]}")
+    say(f"composite_bwd at the train step: {live} of {all_slots} (warp, "
+        f"window slot) pairs ({100 * live / all_slots:.2f}%) have a pixel "
+        f"whose alpha passes the cutoff ({100 * live / masked_in:.2f}% of "
+        f"the {masked_in} masked-in pairs); only those run the gradient and "
+        f"the butterfly")
     say(f"layers of the pallas train step, bench scene camera 0 (median of "
         f"{REPS}, ms): " + ", ".join(f"{k} {v:.4f}"
                                     for k, v in player.items()))
     bt = pkin["bwd_args"]
     b.update({
         "composite_tiles_bwd_ms": player["composite_tiles_bwd kernel"],
-        "composite_tiles_bwd_plain_ms": median_ms(
+        "composite_tiles_bwd_plain_ms": kernel_ms(
             lambda: composite.composite_tiles_bwd_plain(*bt)),
         "composite_tiles_bwd_bound": composite_tiles_bwd_bound(
             pkin["tiles"], pkin["nchunks"]),

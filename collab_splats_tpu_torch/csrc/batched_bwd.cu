@@ -22,23 +22,39 @@
 // near-equal terms); both agree within the gradient tolerance.
 //
 // Bound on the H100: operations -- per (pixel, slot) pair the forward chain
-// is evaluated twice (once to rebuild the carry, once in the backward walk:
-// two exp and a log1p per live pair) plus ~40 FP32 operations of the
-// gradient; the [T, K, 9 + V] rows are read once and d_g written once.
+// is evaluated again (to rebuild the carry, and in the backward walk: two
+// exp and a log1p per live pair) plus ~40 FP32 operations of the gradient;
+// the [T, K, 9 + V] rows are read once and d_g written once.  The card runs
+// a warp's instructions for all 32 pixels whenever one of them needs them,
+// so what the kernel pays for is (warp, slot) pairs, and each pair's 9 + V
+// per-slot sums must cross the warp: reduced one by one with 5-step
+// shuffle trees they take 75 shuffles at V = 6 and 140 at V = 19, and an
+// SM runs one warp shuffle per clock.
 //
-// Design: one block per 16x16 tile, one thread per pixel, as in the
-// forward.  The window is walked in 64-slot batches, back to front, with the
-// running suffix sum in a register.  For each batch the rows and mask are
-// staged in shared memory, and the batch's chain is rebuilt front to back
-// from the forward's banked carry (prefix[b]), slot by slot with the
-// forward's rounding, into a [64, 256] shared-memory table of exclusive
-// log-transmittances: no transmittance is recovered by dividing through
-// 1 - alpha.  Then the batch is walked back to front.  Each slot's 9 + V
-// pixel sums are reduced per warp with shuffles (skipped, as zeros, when
-// no pixel of the warp sees the splat), and after the batch the 8 warps'
-// partials are added in a fixed order: no atomics, so the result is the
-// same bits on every run.  A batch whose mask is all zero writes zeros.
-// Shared memory: 98 KB at V = 6, 127 KB at V = 19 (dynamic).
+// Design: one block per 16x16 tile, one thread per pixel; each warp owns an
+// 8x4 block of the tile's pixels, which a splat of a few pixels reaches in
+// fewer warps than rows of 16x2 do.  The window is walked in 64-slot
+// batches, back to front, with the running suffix sum in a register.  For
+// each batch the rows are staged in shared memory (padded to whole float4s
+// and read as 16-byte broadcasts), the mask is kept as ballot bits, and the
+// batch's chain is rebuilt front to back from the forward's banked carry
+// (prefix[b]) into a [64, 256] table of exclusive log-transmittances (no
+// transmittance is recovered by dividing through 1 - alpha).  The rebuild
+// decides which pairs are live, with the forward's rounding, and writes
+// kDead for the others.  Then the batch is walked back to front, one slot
+// at a time: a slot that no pixel of the warp keeps costs one shared-memory
+// read and writes zeros; otherwise each lane forms its 9 + V terms (zero
+// where its pixel does not keep the slot), and a transposing butterfly
+// (reduce-scatter) over xor-partners leaves in lane l the warp's sum of
+// term l: 8 + 4 + 2 + 1 shuffles and one more to join the half-warps at
+// V = 6 (16 terms), 31 at V = 19 (32 terms).  Lane l writes its sum into
+// the carry table, over its own warp's entry for that slot, which is read
+// no more; after the batch the 8 warps' partials are added in a fixed
+// order.  No atomics, and every sum is taken in a fixed order, so the
+// result is the same bits on every run.  A batch whose mask is all zero
+// writes zeros.  chip_ablate.py times the variants of these choices.
+// Shared memory: 73 KB at V = 6, 80 KB at V = 19 (dynamic); at V = 6 three
+// blocks fit on an SM (nvcc -Xptxas -v prints the registers).
 // Never build with --use_fast_math: the live decisions must round as the
 // forward's did.
 
@@ -50,16 +66,78 @@ constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
 constexpr int kBatch = 64;
 constexpr int kWarps = kPixels / 32;
+// The carry table's entry for a dead pair: carries are never positive.
+constexpr float kDead = 1.f;
 
 template <int V>
-constexpr int smem_floats() {
-  // rows, mask, exclusive carries, warp partials
-  return kBatch * (9 + V) + kBatch + kBatch * kPixels +
-         kWarps * kBatch * (9 + V);
+struct Layout {
+  static constexpr int D = 9 + V;                // row width, per-slot sums
+  static constexpr int kPad = D <= 16 ? 16 : 32;  // terms a lane reduces
+  static_assert(D <= 32, "one slot's sums must fit in a warp");
+  // A staged row's stride: whole float4s, read as 16-byte broadcasts.
+  static constexpr int kRow = (D + 3) / 4 * 4;
+  // rows, exclusive carries (and the warps' partials), slot sums
+  static constexpr int kSmemFloats =
+      kBatch * kRow + kBatch * kPixels + kBatch * D;
+};
+
+// One stage of the butterfly below: a lane keeps the half of its first 2H
+// values selected by bit H of its id, sends its xor-partner the other half
+// and adds what the partner sends back.
+template <int H, int N>
+__device__ __forceinline__ void butterfly_stage(float (&x)[N], int lane) {
+  const bool upper = (lane & H) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = upper ? x[k] : x[k + H];
+    const float keep = upper ? x[k + H] : x[k];
+    x[k] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
 }
 
+// x[N] per lane (N = 16 or 32) -> the warp's sum of x[lane % N], a
+// reduce-scatter: after the stage of bit H, value k of a lane stands for
+// value k + (lane & H) of the stage before.  With N = 16 the two half-warps
+// hold the same terms after four stages and one more shuffle joins them.
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&x)[N], int lane) {
+  if constexpr (N == 32) butterfly_stage<16>(x, lane);
+  butterfly_stage<8>(x, lane);
+  butterfly_stage<4>(x, lane);
+  butterfly_stage<2>(x, lane);
+  butterfly_stage<1>(x, lane);
+  if constexpr (N == 16) return x[0] + __shfl_xor_sync(0xffffffffu, x[0], 16);
+  return x[0];
+}
+
+// The slot's pixel offsets and quadratic form, in the forward's order of
+// operations.
+__device__ __forceinline__ void slot_sigma(const float* r, float up, float vp,
+                                           float& du, float& dv,
+                                           float& sigma) {
+  du = __fsub_rn(up, r[0]);
+  dv = __fsub_rn(vp, r[1]);
+  const float q = __fadd_rn(__fmul_rn(__fmul_rn(r[2], du), du),
+                            __fmul_rn(__fmul_rn(r[4], dv), dv));
+  sigma = __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(r[3], du), dv));
+}
+
+// The first N (a multiple of 4) values of a staged row, as float4 loads.
+template <int N>
+__device__ __forceinline__ void load_row(const float* src, float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(src + i);
+    r[i] = q.x;
+    r[i + 1] = q.y;
+    r[i + 2] = q.z;
+    r[i + 3] = q.w;
+  }
+}
+
+// The register budget of 2 blocks an SM: that of 3 measured no faster.
 template <int V>
-__global__ void __launch_bounds__(kPixels)
+__global__ void __launch_bounds__(kPixels, 2)
 composite_bwd_kernel(const float* __restrict__ g,
                      const float* __restrict__ mask,
                      const float* __restrict__ prefix,
@@ -70,27 +148,33 @@ composite_bwd_kernel(const float* __restrict__ g,
                      const int* __restrict__ idx,
                      const float* __restrict__ t_total, int k_total, int ntx,
                      float near_plane, float* __restrict__ d_g) {
-  constexpr int D = 9 + V;  // row width, and the per-slot pixel sums
-  extern __shared__ float smem[];
-  float* sg = smem;                     // [kBatch, D] window rows
-  float* sm = sg + kBatch * D;          // [kBatch] mask
-  float* sc = sm + kBatch;              // [kBatch, kPixels] exclusive carry
-  float* sp = sc + kBatch * kPixels;    // [kWarps, kBatch, D] warp partials
+  using L = Layout<V>;
+  constexpr int D = L::D;
+  constexpr int kPad = L::kPad;
+  constexpr int kRow = L::kRow;
+  extern __shared__ __align__(16) float smem[];
+  float* sg = smem;                     // [kBatch, kRow] window rows
+  float* sc = sg + kBatch * kRow;       // [kBatch, kPixels] exclusive carry
+  float* ss = sc + kBatch * kPixels;    // [kBatch, D] per-slot pixel sums
 
   const float alpha_cutoff = (float)(1.0 / 255.0);
   const float alpha_max = (float)0.999;
 
   const int tile = blockIdx.x;
-  const int p = threadIdx.x;
+  const int p = threadIdx.x;  // the carry table's column
   const int lane = p & 31;
   const int warp = p >> 5;
-  const float up = (float)((tile % ntx) * kTile + p % kTile) + 0.5f;
-  const float vp = (float)((tile / ntx) * kTile + p / kTile) + 0.5f;
+  // This thread's pixel: warp w owns the 8x4 block at ((w % 2) 8, (w / 2) 4).
+  const int px = (warp % 2) * 8 + lane % 8;
+  const int py = (warp / 2) * 4 + lane / 8;
+  const int pix = py * kTile + px;
+  const float up = (float)((tile % ntx) * kTile + px) + 0.5f;
+  const float vp = (float)((tile / ntx) * kTile + py) + 0.5f;
   const float* gt = g + (size_t)tile * k_total * D;
   const float* mt = mask + (size_t)tile * k_total;
   float* dgt = d_g + (size_t)tile * k_total * D;
 
-  const size_t o = (size_t)tile * kPixels + p;
+  const size_t o = (size_t)tile * kPixels + pix;
   float gv[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) gv[v] = g_v[o * V + v];
@@ -105,121 +189,114 @@ composite_bwd_kernel(const float* __restrict__ g,
   for (int b = nbatch - 1; b >= 0; --b) {
     const int k0 = b * kBatch;
     const int nb = min(kBatch, k_total - k0);
-    __syncthreads();  // the previous batch is consumed
-    for (int i = p; i < nb * D; i += kPixels) sg[i] = gt[(size_t)k0 * D + i];
-    int live = 0;
-    for (int i = p; i < nb; i += kPixels) {
-      const float m = mt[k0 + i];
-      sm[i] = m;
-      live |= m > 0.f;
-    }
-    if (!__syncthreads_or(live)) {
+    // The batch's mask as bits, the same in every warp: slot j is masked
+    // in iff bit j is set.
+    const unsigned long long mbits =
+        __ballot_sync(0xffffffffu, lane < nb && mt[k0 + lane] > 0.f) |
+        (unsigned long long)__ballot_sync(
+            0xffffffffu, lane + 32 < nb && mt[k0 + lane + 32] > 0.f)
+            << 32;
+    if (mbits == 0) {
       for (int i = p; i < nb * D; i += kPixels) dgt[(size_t)k0 * D + i] = 0.f;
       continue;
     }
+    __syncthreads();  // the previous batch is consumed
+    for (int i = p; i < nb * D; i += kPixels)
+      sg[i / D * kRow + i % D] = gt[(size_t)k0 * D + i];
+    __syncthreads();
 
-    // Rebuild the batch's exclusive carries from the banked prefix, in the
-    // forward kernel's order of operations.
-    float carry = prefix[((size_t)b * gridDim.x + tile) * kPixels + p];
+    // Rebuild the batch's exclusive carries from the banked prefix, keeping
+    // them only for the live pairs: a dead pair's entry is kDead, and a
+    // masked slot leaves the carry as it is and is never read.  The live
+    // decision rounds as the forward's; the carry adds log(1 - alpha) by
+    // the SFU's log, which differs from the forward's log1pf in the last
+    // bits (a carry feeds only T_excl, never a decision).
+    float carry = prefix[((size_t)b * gridDim.x + tile) * kPixels + pix];
     for (int j = 0; j < nb; ++j) {
-      sc[j * kPixels + p] = carry;
-      const float* r = sg + j * D;
-      const float du = __fsub_rn(up, r[0]);
-      const float dv = __fsub_rn(vp, r[1]);
-      const float q = __fadd_rn(__fmul_rn(__fmul_rn(r[2], du), du),
-                                __fmul_rn(__fmul_rn(r[4], dv), dv));
-      const float sigma =
-          __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(r[3], du), dv));
-      if (sm[j] > 0.f && sigma >= 0.f) {
-        const float a =
-            fminf(__fmul_rn(r[8], expf(-fminf(sigma, 50.f))), alpha_max);
-        if (a >= alpha_cutoff) carry = __fadd_rn(carry, log1pf(-a));
-      }
+      if (!((mbits >> j) & 1)) continue;
+      float r[12];
+      load_row(sg + j * kRow, r);
+      float du, dv, sigma;
+      slot_sigma(r, up, vp, du, dv, sigma);
+      // sigma < 0 is dead; the clamp only keeps such a lane finite.
+      const float a = fminf(
+          __fmul_rn(r[8], expf(-fminf(fmaxf(sigma, 0.f), 50.f))), alpha_max);
+      const bool live = sigma >= 0.f && a >= alpha_cutoff;
+      sc[j * kPixels + p] = live ? carry : kDead;
+      if (live) carry = __fadd_rn(carry, __logf(1.f - a));
     }
 
-    // Back to front through the batch.
+    // Back to front through the batch.  A dead pair adds nothing: w = 0,
+    // d_alpha_raw = 0, and the median slot of a pixel is always one of its
+    // live slots.
     for (int j = nb - 1; j >= 0; --j) {
-      const float* r = sg + j * D;
-      const float du = __fsub_rn(up, r[0]);
-      const float dv = __fsub_rn(vp, r[1]);
-      const float q = __fadd_rn(__fmul_rn(__fmul_rn(r[2], du), du),
-                                __fmul_rn(__fmul_rn(r[4], dv), dv));
-      const float sigma =
-          __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(r[3], du), dv));
-      const float tpix_raw =
-          __fadd_rn(__fadd_rn(r[5], __fmul_rn(r[6], du)), __fmul_rn(r[7], dv));
-      const float tpix = fmaxf(tpix_raw, near_plane);
-      float alpha = 0.f, alpha_raw = 0.f, e = 0.f;
-      bool keep = false;
-      if (sm[j] > 0.f && sigma >= 0.f) {
-        e = expf(-fminf(sigma, 50.f));
-        alpha_raw = __fmul_rn(r[8], e);
-        const float a = fminf(alpha_raw, alpha_max);
-        if (a >= alpha_cutoff) {
-          alpha = a;
-          keep = true;
-        }
-      }
-      // A dead pair adds nothing: w = 0, d_alpha_raw = 0, and the median
-      // slot of a pixel is always one of its live slots.
-      if (!__any_sync(0xffffffffu, keep)) {
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < D; ++c) sp[(warp * kBatch + j) * D + c] = 0.f;
-        }
+      if (!((mbits >> j) & 1)) {  // the same for the whole block
+        if (lane < D) sc[j * kPixels + warp * 32 + lane] = 0.f;
         continue;
       }
-      float w = 0.f, d_alpha_raw = 0.f, d_tpix = 0.f;
-      if (keep) {
-        const float t_excl = expf(sc[j * kPixels + p]);
-        w = alpha * t_excl;
+      const float ex = sc[j * kPixels + p];
+      const bool keep = ex <= 0.f;
+      float sum = 0.f;
+      if (__any_sync(0xffffffffu, keep)) {
+        // Every lane forms the slot's terms, zero where it does not keep it.
+        float r[kRow];
+        load_row(sg + j * kRow, r);
+        float du, dv, sigma;
+        slot_sigma(r, up, vp, du, dv, sigma);
+        // A kept pair has sigma >= 0; the clamp keeps a dead lane finite.
+        const float e = expf(-fminf(fmaxf(sigma, 0.f), 50.f));
+        const float alpha_raw = __fmul_rn(r[8], e);
+        const float alpha = fminf(alpha_raw, alpha_max);
+        const float tpix_raw = __fadd_rn(__fadd_rn(r[5], __fmul_rn(r[6], du)),
+                                         __fmul_rn(r[7], dv));
+        const float tpix = fmaxf(tpix_raw, near_plane);
+        // T_excl and 1 / (1 - alpha) feed only the gradient: the SFU's exp
+        // and a fast division are within its tolerance.
+        const float t_excl = __expf(ex);
+        const float w = keep ? alpha * t_excl : 0.f;
         float rv = gd * tpix;
 #pragma unroll
         for (int v = 0; v < V; ++v) rv = fmaf(gv[v], r[9 + v], rv);
-        const float inv1m = 1.f / (1.f - alpha);
+        const float inv1m = __fdividef(1.f, 1.f - alpha);
         const float d_alpha = t_excl * rv - suffix * inv1m + ga_tt * inv1m;
-        suffix += w * rv;
-        if (alpha_raw < alpha_max) d_alpha_raw = d_alpha;
-        d_tpix = w * gd;
+        if (keep) suffix += w * rv;
+        const float d_alpha_raw =
+            keep && alpha_raw < alpha_max ? d_alpha : 0.f;
+        float d_tpix = w * gd;
+        if (k0 + j == med) d_tpix += gm;
+        if (!(tpix_raw >= near_plane)) d_tpix = 0.f;
+        const float d_sigma = sigma <= 50.f ? -alpha_raw * d_alpha_raw : 0.f;
+        float x[kPad];
+        x[0] = d_sigma * du;
+        x[1] = d_sigma * dv;
+        x[2] = x[0] * du;
+        x[3] = x[0] * dv;
+        x[4] = x[1] * dv;
+        x[5] = d_tpix;
+        x[6] = d_tpix * du;
+        x[7] = d_tpix * dv;
+        x[8] = d_alpha_raw * e;
+#pragma unroll
+        for (int v = 0; v < V; ++v) x[9 + v] = w * gv[v];
+#pragma unroll
+        for (int i = D; i < kPad; ++i) x[i] = 0.f;
+        sum = reduce_scatter<kPad>(x, lane);
       }
-      if (k0 + j == med) d_tpix += gm;
-      if (!(tpix_raw >= near_plane)) d_tpix = 0.f;
-      const float d_sigma =
-          keep && sigma <= 50.f ? -alpha_raw * d_alpha_raw : 0.f;
-
-      float c[D];
-      c[0] = d_sigma * du;
-      c[1] = d_sigma * dv;
-      c[2] = c[0] * du;
-      c[3] = c[0] * dv;
-      c[4] = c[1] * dv;
-      c[5] = d_tpix;
-      c[6] = d_tpix * du;
-      c[7] = d_tpix * dv;
-      c[8] = d_alpha_raw * e;
-#pragma unroll
-      for (int v = 0; v < V; ++v) c[9 + v] = w * gv[v];
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          c[i] += __shfl_down_sync(0xffffffffu, c[i], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < D; ++i) sp[(warp * kBatch + j) * D + i] = c[i];
-      }
+      // Lane l holds term l (l < D) of the warp's sum.  It goes into the
+      // carry table over this warp's entry of pixel l for the slot, which
+      // that pixel's thread read before the vote above.
+      if (lane < D) sc[j * kPixels + warp * 32 + lane] = sum;
     }
     __syncthreads();
 
-    // The 8 warps' partials, added in a fixed order, into the carry table
-    // (free now): sums[j][i].
-    float* sums = sc;
+    // The 8 warps' partials, added in a fixed order: sums[j][i].
     for (int i = p; i < nb * D; i += kPixels) {
+      const int j = i / D;
+      const float* pj = sc + j * kPixels + (i - j * D);
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += sp[w * kBatch * D + i];
-      sums[i] = s;
+      for (int w = 0; w < kWarps; ++w) s += pj[w * 32];
+      ss[i] = s;
     }
     __syncthreads();
 
@@ -227,8 +304,8 @@ composite_bwd_kernel(const float* __restrict__ g,
     for (int i = p; i < nb * D; i += kPixels) {
       const int j = i / D;
       const int col = i - j * D;
-      const float* sj = sums + j * D;
-      const float* r = sg + j * D;
+      const float* sj = ss + j * D;
+      const float* r = sg + j * kRow;
       float out;
       switch (col) {
         case 0:  // d_mean_u: sigma and tpix both fall as the mean moves
@@ -260,7 +337,7 @@ int launch(const float* g, const float* mask, const float* prefix,
            const float* g_med, const int* idx, const float* t_total, int t,
            int k, int ntx, float near_plane, float* d_g,
            cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(float) * smem_floats<V>();
+  constexpr size_t bytes = sizeof(float) * Layout<V>::kSmemFloats;
   cudaError_t err = cudaFuncSetAttribute(
       composite_bwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

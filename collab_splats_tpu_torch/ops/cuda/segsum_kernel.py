@@ -23,18 +23,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def segment_starts_plain(sorted_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of the kernel's first launch: int32 [n + 1], entry g
+    the number of sorted ids below g (where id g's rows begin; entry n is
+    M)."""
+    queries = torch.arange(n + 1, dtype=sorted_ids.dtype,
+                           device=sorted_ids.device)
+    return torch.searchsorted(sorted_ids, queries, side="left",
+                              out_int32=True)
+
+
 def segment_sum_plain(sorted_ids: torch.Tensor, order: torch.Tensor,
                       rows: torch.Tensor, n: int) -> torch.Tensor:
     """Plain version of the kernel: the rows in sorted order, reduced per
-    run of equal ids (exact sums, no prefix differences)."""
-    lengths = torch.bincount(sorted_ids, minlength=n)
-    return torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0)
+    run of equal ids (exact sums in sorted order, no prefix differences)."""
+    start = segment_starts_plain(sorted_ids, n)
+    return torch.segment_reduce(rows[order], "sum",
+                                lengths=start[1:] - start[:-1], axis=0)
 
 
 @functools.cache
 def _fn():
     fn = build.load("segsum_kernel").segment_sum_sorted
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -64,17 +75,23 @@ def segment_sum_sorted(sorted_ids: torch.Tensor, order: torch.Tensor,
                 or not x.is_contiguous():
             raise ValueError(f"segment_sum_sorted: {name} must be contiguous "
                              f"{dtype} [{m}] on {dev}")
-    if not 0 <= n < (1 << 31) or m >= (1 << 31):
-        raise ValueError(f"segment_sum_sorted: n={n}, m={m} out of range")
+    # The kernel indexes rows and the merged ids with 32-bit ints, and
+    # stages a block's output rows in shared memory (128 of them at D > 16).
+    if n < 0 or m + n >= (1 << 31) - 64 or m * d >= (1 << 31) \
+            or d > 256:
+        raise ValueError(f"segment_sum_sorted: n={n}, m={m}, d={d} out of "
+                         "range")
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
+    start = torch.empty(n + 1, dtype=torch.int32, device=dev)
     lanes = 1
     while lanes < min(d, 32):
         lanes *= 2
     with torch.cuda.device(dev):
         rc = _fn()(sorted_ids.data_ptr(), order.data_ptr(), rows.data_ptr(),
-                   m, n, d, lanes, out.data_ptr(), build.stream_handle(dev))
+                   m, n, d, lanes, start.data_ptr(), out.data_ptr(),
+                   build.stream_handle(dev))
     build.check(rc, "segment_sum_sorted")
     global launches
     launches += 1

@@ -97,6 +97,54 @@ def test_expand_rows_gathers_and_reduces():
     assert segsum_kernel.launches == launches   # the CPU runs the plain sum
 
 
+def skewed(seed, n=N, m=M, d=D):
+    """Ids with a gaussian that owns a third of the rows, a run of ids that
+    own none, the last id owned, and M no multiple of a block."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx = np.where((idx >= 200) & (idx < 450), idx % 200, idx)
+    idx[: m // 3] = 11
+    idx[-5:] = n - 1
+    rows = (rng.normal(size=(m, d))
+            * rng.uniform(1e-3, 1e3, (m, 1))).astype(np.float32)
+    return idx, rows
+
+
+@pytest.mark.parametrize("case", ["spread", "skewed", "no_rows", "all_one"])
+def test_segment_starts_match_jax_searchsorted(case):
+    if case == "spread":
+        idx, _ = inputs(7)
+    elif case == "skewed":
+        idx, _ = skewed(8, m=M + 3)
+    elif case == "no_rows":
+        idx = np.zeros(0, np.int32)
+    else:
+        idx = np.full(M, N - 1, np.int32)
+    sidx = np.sort(idx)
+    ref = np.asarray(jnp.searchsorted(jnp.asarray(sidx),
+                                      jnp.arange(N + 1, dtype=jnp.int32),
+                                      side="left"))
+    got = segsum_kernel.segment_starts_plain(torch.from_numpy(sidx), N)
+    assert got.dtype == torch.int32 and got.shape == (N + 1,)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("d", [2, 15, 16])
+def test_expand_rows_backward_on_skewed_ids_matches_pallas(d):
+    idx, rows = skewed(9, d=d)
+    table = torch.zeros((N, d), requires_grad=True)
+    segsum.expand_rows(table, torch.from_numpy(idx)).backward(
+        torch.from_numpy(rows))
+    ref = np.asarray(expand_bwd_pallas(N, jnp.asarray(idx),
+                                       jnp.asarray(rows), interpret=True))
+    got = table.grad.numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6,
+                               atol=1e-6 * np.abs(ref).max())
+    owned = np.bincount(idx, minlength=N) > 0
+    assert not owned[200:450].any() and owned[N - 1]
+    assert np.all(got[~owned] == 0.0) and np.all(ref[~owned] == 0.0)
+
+
 def test_spread_masked_keeps_live_ids():
     idx = torch.tensor([5, 3, 9, 1], dtype=torch.int32)
     mask = torch.tensor([True, False, True, False])
