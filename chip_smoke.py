@@ -21,10 +21,9 @@ against the ``"xla"`` render.  Then it drives the port's four main paths:
    reading ``update_state_from_isect``, and a repeated step.
 
 It checks what comes out, the kernels each path launches, and prints
-per-layer and per-kernel timings: a kernel, its plain version and a library
-call are timed on the card alone (``kernel_ms``), the segment sum at the
-expand_rows backward's D = 15 rows and the statistic's D = 2 rows, each
-beside ``index_add_``; with the share of (warp, slot) pairs in which the
+per-layer and per-kernel timings (the segment sum at the expand_rows
+backward's D = 15 rows and the statistic's D = 2 rows, each beside
+``index_add_``), with the share of (warp, slot) pairs in which the
 compositing backward finds a live pixel.
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
@@ -56,7 +55,7 @@ from collab_splats_tpu_torch.models import gaussians, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
                                               composite, segsum_kernel)
-from collab_splats_tpu_torch.train import losses, strategy
+from collab_splats_tpu_torch.train import strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
@@ -79,7 +78,6 @@ PALLAS_REFINE_EVERY = 4
 PALLAS_REFINE_AT = 12
 FIT_STEPS = 300
 RENDER_REPS = 30   # the host-clock render time spreads more than a kernel's
-SPIN_CYCLES = 1_000_000   # the card's lead over the host in kernel_ms
 TS = 16
 NEAR = RenderOptions().near_plane
 KEYS = ("rgb", "depth", "median_depth", "normals", "accumulation")
@@ -98,19 +96,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def timings(fn, host_clock=False, reps=REPS, device_only=False):
+def timings(fn, host_clock=False, reps=REPS):
     """``reps`` synchronised timings of ``fn`` in ms, after one warm-up:
-    CUDA events around a layer or a kernel, the host clock around a whole
-    render.  With ``device_only`` the card first spins for about half a
-    millisecond, so that ``fn``'s launches are queued before the start
-    event runs and the time between the events is the card's alone, not
-    the host's time to reach the launch."""
+    CUDA events around a kernel, the host clock around a whole render."""
     fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
-        if device_only:
-            torch.cuda._sleep(SPIN_CYCLES)
         if host_clock:
             t0 = time.perf_counter()
             fn()
@@ -129,12 +121,6 @@ def timings(fn, host_clock=False, reps=REPS, device_only=False):
 
 def median_ms(fn, host_clock=False, reps=REPS):
     return statistics.median(timings(fn, host_clock, reps))
-
-
-def kernel_ms(fn, reps=REPS):
-    """Median card time of ``fn`` (a kernel, its plain version or a library
-    call), without the host's time to launch it."""
-    return statistics.median(timings(fn, reps=reps, device_only=True))
 
 
 def assert_grad_close(got, ref, what):
@@ -270,17 +256,25 @@ DG_GROUPS = (("mean", 0, 2), ("conic", 2, 5), ("depth, plane", 5, 8),
              ("opacity", 8, 9), ("vals", 9, None))
 
 
-def check_composite_bwd(g, mask, ntx, fwd, seed) -> float:
+def limit_share(got, ref) -> float:
+    """The largest |got - ref| over its limit in the gradient tolerance
+    (rtol 5e-4, atol 5e-5 * max |ref|): 1 at the limit."""
+    lim = GRAD_ATOL * float(ref.abs().max()) + GRAD_RTOL * ref.abs()
+    return float(((got - ref).abs() / lim).nan_to_num(0.0).max())
+
+
+def check_composite_bwd(g, mask, ntx, fwd, seed, what) -> float:
     """The backward kernel against the plain backward on the forward
     outputs ``fwd`` with seeded cotangents (see check_composite_bwd_args)."""
-    return check_composite_bwd_args(bwd_inputs(g, mask, ntx, fwd, seed))
+    return check_composite_bwd_args(bwd_inputs(g, mask, ntx, fwd, seed),
+                                    what)
 
 
-def check_composite_bwd_args(args) -> float:
+def check_composite_bwd_args(args, what) -> float:
     """The backward kernel on its arguments ``args`` against the plain
     backward within the gradient tolerance for each column group, exactly 0
-    at masked slots, and the same bits on a second launch.  Returns the max
-    abs difference."""
+    at masked slots, and the same bits on a second launch.  Prints each
+    group's error over its limit; returns the max abs difference."""
     g, mask, ntx = args[0], args[1], args[9]
     got = batched.composite_batched_bwd(*args)
     again = batched.composite_batched_bwd(*args)
@@ -290,6 +284,10 @@ def check_composite_bwd_args(args) -> float:
         got[..., a:b], ref[..., a:b],
         f"composite_bwd V={g.shape[2] - 9} d_g[{name}]")
         for name, a, b in DG_GROUPS)
+    say(f"composite_bwd {what} V={g.shape[2] - 9}: error over its limit per "
+        f"column group: " + ", ".join(
+            f"{name} {limit_share(got[..., a:b], ref[..., a:b]):.4f}"
+            for name, a, b in DG_GROUPS))
     if not torch.equal(got, again):
         raise AssertionError("composite_bwd: two launches differ")
     if bool((mask == 0).any()) and float(got[mask == 0].abs().max()) != 0:
@@ -322,14 +320,19 @@ def close_1e6(got, ref, what) -> float:
 
 
 def check_segsum_rows(sorted_ids, order, rows, n, what) -> float:
-    """The segment-sum kernel against its plain version and the same bits
-    on a second launch."""
+    """The segment-sum kernel against its plain version: the same bits
+    (both sum each segment in sorted order, unsplit), and the same bits on
+    a second launch."""
     got = segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n)
     again = segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n)
     ref = segsum_kernel.segment_sum_plain(sorted_ids, order, rows, n)
     if not torch.equal(got, again):
         raise AssertionError(f"segment_sum {what}: two launches differ")
-    return close_1e6(got, ref, f"segment_sum {what}")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"segment_sum {what}: not bit-identical to the "
+                             f"plain version (max abs err "
+                             f"{float((got - ref).abs().max()):.3g})")
+    return 0.0
 
 
 def check_segsum(bins, n, d=15) -> float:
@@ -337,11 +340,14 @@ def check_segsum(bins, n, d=15) -> float:
     return check_segsum_rows(sorted_ids, order, rows, n, f"D={d}")
 
 
-# A skewed id stream at the xla train step's size: one gaussian that owns
-# 2^17 rows, a run of ids that own none, the last id owned, and an M that
-# is no multiple of a block.
+# Id streams at the xla train step's size.  The skewed one: one gaussian
+# that owns 2^17 rows, a run of ids that own none, the last id owned, and an
+# M that is no multiple of a block.  The tile-length one: a gaussian owns at
+# most one row per tile (3,600 at 1280x720), and TILE_LONG_IDS gaussians
+# own that many here, as gaussians that cover the whole image would.
 SKEW_N, SKEW_M = 1_262_144, 3600 * 512 + 77
 SKEW_LONG, SKEW_EMPTY = (5, 1 << 17), (400_000, 520_000)
+TILE_ROWS, TILE_LONG_IDS = 3600, 16
 
 
 def skewed_ids(dev) -> torch.Tensor:
@@ -356,31 +362,82 @@ def skewed_ids(dev) -> torch.Tensor:
     return idx
 
 
-def check_segsum_skewed(dev) -> float:
-    """Kernel 4 on the skewed stream at D = 15 and D = 2 against its plain
-    version, with a bit-identical repeat."""
-    idx = skewed_ids(dev)
+def tile_length_ids(dev) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(11)
+    idx = torch.randint(0, SKEW_N, (SKEW_M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    # Even ids own TILE_ROWS rows each; the other rows move off them.
+    gids = 2 * torch.randperm(SKEW_N // 2, generator=gen,
+                              device=dev)[:TILE_LONG_IDS].int()
+    idx = torch.where(torch.isin(idx, gids), idx + 1, idx)
+    idx[:TILE_LONG_IDS * TILE_ROWS] = gids.repeat_interleave(TILE_ROWS)
+    return idx
+
+
+def long_rows_share(idx, n):
+    """The longest segment of the ids ``idx`` and the share of their rows
+    in segments over LONG_ROWS rows (those the kernel sums by a block)."""
+    counts = torch.bincount(idx, minlength=n)
+    long = counts[counts > segsum_kernel.LONG_ROWS]
+    return int(counts.max()), float(long.sum()) / idx.shape[0]
+
+
+def stream_args(idx, seed):
+    """The segment sum's arguments for the ids ``idx`` with seeded normal
+    rows, at D = 15 and D = 2."""
     sorted_ids, order = torch.sort(idx, stable=True)
+    return {d: (sorted_ids, order, torch.randn(
+        (idx.shape[0], d), device=idx.device,
+        generator=torch.Generator(device=idx.device).manual_seed(seed + d)),
+        SKEW_N) for d in (15, 2)}
+
+
+def check_segsum_streams(dev) -> float:
+    """Kernel 4 against its plain version on the skewed and the
+    tile-length streams at D = 15 and D = 2, bit-identical and with a
+    bit-identical repeat; on the tile-length stream also with every
+    segment left to the group walk (long_rows = TILE_ROWS), timed both ways
+    beside index_add_."""
+    idx = skewed_ids(dev)
     counts = torch.bincount(idx, minlength=SKEW_N)
     lo, hi = SKEW_EMPTY
     if not (int(counts[SKEW_LONG[0]]) >= SKEW_LONG[1]
             and int(counts[lo:hi].sum()) == 0 and int(counts[-1]) > 0):
         raise AssertionError("skewed segment-sum stream is not skewed")
-    errs, same = [], []
-    for d in (15, 2):
-        gen = torch.Generator(device=dev).manual_seed(10 + d)
-        rows = torch.randn((SKEW_M, d), generator=gen, device=dev)
-        errs.append(check_segsum_rows(sorted_ids, order, rows, SKEW_N,
-                                      f"skewed D={d}"))
-        same.append(torch.equal(
-            segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, SKEW_N),
-            segsum_kernel.segment_sum_plain(sorted_ids, order, rows, SKEW_N)))
+    for d, args in stream_args(idx, 10).items():
+        check_segsum_rows(*args, f"skewed D={d}")
     say(f"parity skewed stream: segment_sum at N={SKEW_N}, M={SKEW_M}, one "
         f"id owning {int(counts.max())} rows, ids {lo}..{hi - 1} owning none, "
-        f"id N-1 owning {int(counts[-1])}: max abs err {max(errs):.3g} at "
-        f"D=15 and D=2, bit-identical to the plain version {same}, repeats "
-        f"bit-identical")
-    return max(errs)
+        f"id N-1 owning {int(counts[-1])}: bit-identical to the plain version "
+        f"at D=15 and D=2, repeats bit-identical")
+
+    tidx = tile_length_ids(dev)
+    longest, share = long_rows_share(tidx, SKEW_N)
+    if longest != TILE_ROWS:
+        raise AssertionError(f"tile-length stream: longest segment {longest}")
+    times = []
+    for d, args in stream_args(tidx, 20).items():
+        check_segsum_rows(*args, f"tile-length D={d}")
+        walk = segsum_kernel.segment_sum_sorted(*args, long_rows=TILE_ROWS)
+        if not torch.equal(walk, segsum_kernel.segment_sum_plain(*args)):
+            raise AssertionError(f"segment_sum tile-length D={d}: the group "
+                                 "walk alone is not bit-identical")
+        calls = {
+            "kernel": lambda: segsum_kernel.segment_sum_sorted(*args),
+            "group walk alone": lambda: segsum_kernel.segment_sum_sorted(
+                *args, long_rows=TILE_ROWS),
+            "index_add_": lambda: torch.zeros(
+                (SKEW_N, d), device=dev).index_add_(0, tidx.long(), args[2]),
+        }
+        times.append(f"D={d}: " + ", ".join(
+            f"{k} {median_ms(f):.4f} ms" for k, f in calls.items()))
+    say(f"parity tile-length stream: segment_sum at N={SKEW_N}, M={SKEW_M}, "
+        f"{TILE_LONG_IDS} ids owning {TILE_ROWS} rows each ("
+        f"{100 * share:.2f}% of the rows in segments over "
+        f"{segsum_kernel.LONG_ROWS}): bit-identical to the plain version, "
+        f"with and without the block path; time (median of {REPS}) "
+        + "; ".join(times))
+    return 0.0
 
 
 def check_segsum_step(tr) -> float:
@@ -402,8 +459,8 @@ def check_segsum_step(tr) -> float:
     loss, _ = rade_gs.get_loss(out, tr.images[0], tr.params, alive, tr.step,
                                cfg, reg_active=True)
     (sink_grad,) = torch.autograd.grad(loss, [sink])
-    sorted_ids, order, rows15 = segsum_inputs(window_idx(meta.bins, n), 15,
-                                              seed=8)
+    idx = window_idx(meta.bins, n)
+    sorted_ids, order, rows15 = segsum_inputs(idx, 15, seed=8)
     mask = meta.bins.tile_mask.reshape(-1)
     rows2 = torch.where(mask[:, None], sink_grad.abs().reshape(-1, 2),
                         torch.zeros((), device=alive.device))
@@ -417,10 +474,13 @@ def check_segsum_step(tr) -> float:
         if not torch.equal(a, b):
             raise AssertionError(f"update_state {name}: two calls differ")
         err = max(err, close_1e6(a, r, f"update_state {name}"))
+    longest, share = long_rows_share(idx, n)
     say(f"parity train step: segment_sum at N={n}, M={rows2.shape[0]} "
         f"(D=15 expand_rows rows, D=2 |sink gradient| rows of step "
         f"{tr.step}) and update_state against the plain sums: max abs err "
-        f"{err:.3g}, repeats bit-identical")
+        f"{err:.3g}, repeats bit-identical; longest segment {longest} rows, "
+        f"{100 * share:.4f}% of the rows in segments over "
+        f"{segsum_kernel.LONG_ROWS}")
     return err
 
 
@@ -435,8 +495,9 @@ def parity(name, scene):
     errs = {
         "decode": max(check_decode(p) for p in plans.values()),
         "composite": max(e6, e19),
-        "composite_bwd": max(check_composite_bwd(g6, mask, ntx, f6, 1),
-                             check_composite_bwd(g19, mask, ntx, f19, 2)),
+        "composite_bwd": max(check_composite_bwd(g6, mask, ntx, f6, 1, name),
+                             check_composite_bwd(g19, mask, ntx, f19, 2,
+                                                 name)),
     }
     say(f"parity {name}: decode bit-exact with exact and quantized ranks "
         f"({plans[True].m_cap} slots); composite max abs err "
@@ -1121,21 +1182,21 @@ def fitting_run(dev):
 
 
 @contextlib.contextmanager
-def captured_tiles_bwd():
-    """Collects the arguments of every kernel 6 call made inside the block
-    (under autograd: the step's own packed matrix, nchunks and loss
-    cotangent)."""
-    seen, real = [], composite.composite_tiles_bwd_call
+def captured(module, name):
+    """Collects the arguments of every call of ``module.name`` made inside
+    the block (for a backward kernel under autograd: the step's own inputs
+    and the loss's cotangent)."""
+    seen, real = [], getattr(module, name)
 
     def call(*args):
         seen.append(args)
         return real(*args)
 
-    composite.composite_tiles_bwd_call = call
+    setattr(module, name, call)
     try:
         yield seen
     finally:
-        composite.composite_tiles_bwd_call = real
+        setattr(module, name, real)
 
 
 def train_layer_times(tr):
@@ -1163,8 +1224,17 @@ def train_layer_times(tr):
                                 reg_active=True)[0]
 
     loss = loss_fn()
-    with captured_tiles_bwd() as seen:
+    bwd_module, bwd_name = ((composite, "composite_tiles_bwd_call") if pallas
+                            else (batched, "composite_batched_bwd"))
+    with captured(bwd_module, bwd_name) as seen:
         grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True)
+    if len(seen) != 1:
+        raise AssertionError(f"train step: {len(seen)} {bwd_name} calls in "
+                             "a backward")
+    # The compositing backward's own inputs in the step: its matrix or
+    # window rows and the loss's cotangent.
+    bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                  for a in seen[0])
     out = {
         "forward (render, error maps)": median_ms(forward),
         **{f"forward: {k}": v for k, v in (
@@ -1176,46 +1246,23 @@ def train_layer_times(tr):
     }
     # The kernels of the backward, alone, on the step's inputs.
     n = alive.shape[0]
+    bwd = "composite_tiles_bwd kernel" if pallas else "composite_bwd kernel"
+    out[bwd] = median_ms(lambda: getattr(bwd_module, bwd_name)(*bargs))
     if pallas:
-        if len(seen) != 1:
-            raise AssertionError(f"pallas train step: {len(seen)} "
-                                 "composite_tiles_bwd calls in a backward")
-        # The step's own inputs: isect (with the sink), nchunks and the
-        # loss's cotangent of the packed maps.
-        bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
-                      for a in seen[0])
-        nch = bargs[4]
         ti = TilesInputs(*bargs[:4], bargs[7], bargs[9])
-        bwd = "composite_tiles_bwd kernel"
-        out[bwd] = kernel_ms(
-            lambda: composite.composite_tiles_bwd_call(*bargs))
         idx = segsum.spread_masked(meta.aligned_gid, meta.aligned_valid, n)
         d = ti.isect.shape[0]
-        kernels = {"tiles": ti, "nchunks": nch, "bwd_args": bargs}
+        kernels = {"tiles": ti, "nchunks": bargs[4], "bwd_args": bargs}
         update = strategy.update_state_from_isect
     else:
-        opac = gaussians.activated_opacity(params, alive).detach()
-        proj = meta.proj
-        if cfg.render.rasterize_mode == "antialiased":
-            opac = opac * proj.compensation.detach()
-        colors = rade_gs.compute_colors(params, cam, tr.step, cfg).detach()
-        g = rasterize.window_rows(meta.bins, rasterize.pack_per_gauss(
-            type(proj)(*(x.detach() for x in proj)), opac,
-            proj.normal.detach(), colors))
-        mask = meta.bins.tile_mask.to(torch.float32)
-        ntx = meta.bins.num_tiles_x
-        fwd = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
-                                            bank_prefix=True)
-        bargs = bwd_inputs(g, mask, ntx, fwd, seed=6)
-        bwd = "composite_bwd kernel"
-        out[bwd] = kernel_ms(lambda: batched.composite_batched_bwd(*bargs))
         idx = window_idx(meta.bins, n)
-        d = g.shape[2]
-        kernels = {"g": g, "mask": mask, "ntx": ntx, "bwd_args": bargs}
+        d = bargs[0].shape[2]
+        kernels = {"g": bargs[0], "mask": bargs[1], "ntx": bargs[9],
+                   "bwd_args": bargs}
         update = strategy.update_state
     sorted_ids, order, rows = segsum_inputs(idx, d, 7)
     out["segment-sum sort"] = median_ms(lambda: torch.sort(idx, stable=True))
-    out["segment_sum kernel"] = kernel_ms(
+    out["segment_sum kernel"] = median_ms(
         lambda: segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n))
     out["rest of the backward"] = (out["backward (autograd.grad)"] - out[bwd]
                                    - out["segment-sum sort"]
@@ -1272,7 +1319,7 @@ def main() -> int:
     say(f"parity bench: segment_sum max abs err {seg_err:.3g} against its "
         f"plain version (M={3600 * 512}, D=15, N=1000000), repeat "
         f"bit-identical")
-    seg_err = max(seg_err, check_segsum_skewed(dev))
+    seg_err = max(seg_err, check_segsum_streams(dev))
     for backend in ("xla", "pallas"):
         reference_check(dev, backend)
         train_reference_check(dev, backend)
@@ -1320,12 +1367,12 @@ def main() -> int:
     tlayers, kin = train_layer_times(tr)
     tr.load_state(start)
     # Kernel 3 against its plain version on the step's own window rows,
-    # mask and banked prefix (seeded cotangents).
-    step_bwd_err = check_composite_bwd_args(kin["bwd_args"])
-    say(f"parity train step: composite_bwd on the step's inputs (T="
-        f"{kin['g'].shape[0]}, K={kin['g'].shape[1]}) max abs err "
-        f"{step_bwd_err:.3g} (gradient tolerance per column group, masked "
-        f"slots 0, repeat bit-identical)")
+    # mask, banked prefix and the loss's cotangent.
+    step_bwd_err = check_composite_bwd_args(kin["bwd_args"], "train step")
+    say(f"parity train step: composite_bwd on the step's inputs and the "
+        f"loss's cotangent (T={kin['g'].shape[0]}, K={kin['g'].shape[1]}) "
+        f"max abs err {step_bwd_err:.3g} (gradient tolerance per column "
+        f"group, masked slots 0, repeat bit-identical)")
 
     # Main path 2, the training step at the bench scene's width.
     refine_at = 2 * REFINE_EVERY
@@ -1416,17 +1463,17 @@ def main() -> int:
         plan, g, mask, ntx, errs = inputs[name]
         turn = iter(range(10 ** 6))
         rec = {
-            "decode_ms": kernel_ms(
+            "decode_ms": median_ms(
                 lambda: binning_kernel.decode_bin_keys(*decode_args(plan))),
-            "decode_plain_ms": kernel_ms(
+            "decode_plain_ms": median_ms(
                 lambda: binning_kernel.decode_keys_plain(*decode_args(plan))),
-            "composite_ms": kernel_ms(
+            "composite_ms": median_ms(
                 lambda: batched.composite_batched_fwd(g, mask, ntx, TS,
                                                       NEAR)),
-            "composite_banked_ms": kernel_ms(
+            "composite_banked_ms": median_ms(
                 lambda: batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
                                                       bank_prefix=True)),
-            "composite_plain_ms": kernel_ms(
+            "composite_plain_ms": median_ms(
                 lambda: compositing.fused_forward(g, mask, ntx, TS, NEAR,
                                                   tile_chunk=256)),
             "render_ms": timings(
@@ -1443,9 +1490,9 @@ def main() -> int:
         _, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
         pcfg = pallas_scenes[name][3]
         rec.update({
-            "composite_tiles_ms": kernel_ms(
+            "composite_tiles_ms": median_ms(
                 lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
-            "composite_tiles_plain_ms": kernel_ms(
+            "composite_tiles_plain_ms": median_ms(
                 lambda: composite.composite_tiles_fwd_plain(
                     *ti.fwd_args(stop))),
             "composite_tiles_bound": composite_tiles_bound(ti, nch),
@@ -1494,7 +1541,7 @@ def main() -> int:
     b = records["bench"]
     b.update({
         "composite_bwd_ms": tlayers["composite_bwd kernel"],
-        "composite_bwd_plain_ms": kernel_ms(
+        "composite_bwd_plain_ms": median_ms(
             lambda: compositing.fused_backward(
                 bargs[0], bargs[1], bargs[7], bargs[8], *bargs[3:7],
                 kin["ntx"], TS, NEAR),
@@ -1502,17 +1549,17 @@ def main() -> int:
         "composite_bwd_bound": composite_bwd_bound(kin["g"], kin["mask"],
                                                    kin["ntx"]),
         "segment_sum_ms": tlayers["segment_sum kernel"],
-        "segment_sum_plain_ms": kernel_ms(
+        "segment_sum_plain_ms": median_ms(
             lambda: segsum_kernel.segment_sum_plain(*sargs)),
-        "segment_sum_library_ms": kernel_ms(
+        "segment_sum_library_ms": median_ms(
             lambda: torch.zeros((sargs[3], d), device=dev).index_add_(
                 0, kin["idx"].long(), sargs[2])),
         "segment_sum_bound": segsum_bound(m, d, sargs[3]),
     })
     s2 = kin["segsum2_args"]
     seg2 = {
-        "ms": kernel_ms(lambda: segsum_kernel.segment_sum_sorted(*s2)),
-        "library_ms": kernel_ms(
+        "ms": median_ms(lambda: segsum_kernel.segment_sum_sorted(*s2)),
+        "library_ms": median_ms(
             lambda: torch.zeros((s2[3], 2), device=dev).index_add_(
                 0, kin["idx"].long(), s2[2])),
         "bound": segsum_bound(m, 2, s2[3]),
@@ -1544,7 +1591,7 @@ def main() -> int:
     bt = pkin["bwd_args"]
     b.update({
         "composite_tiles_bwd_ms": player["composite_tiles_bwd kernel"],
-        "composite_tiles_bwd_plain_ms": kernel_ms(
+        "composite_tiles_bwd_plain_ms": median_ms(
             lambda: composite.composite_tiles_bwd_plain(*bt)),
         "composite_tiles_bwd_bound": composite_tiles_bwd_bound(
             pkin["tiles"], pkin["nchunks"]),
@@ -1556,6 +1603,10 @@ def main() -> int:
         f"{b['composite_tiles_bwd_bound'][0]:.4f} ms by "
         f"{b['composite_tiles_bwd_bound'][1]} "
         f"({int(pkin['nchunks'].sum())} chunks)")
+    longest, share = long_rows_share(pkin["idx"], pkin["segsum_args"][3])
+    say(f"segment_sum at the pallas train step: longest segment {longest} "
+        f"rows, {100 * share:.4f}% of the rows in segments over "
+        f"{segsum_kernel.LONG_ROWS}")
 
     # The kernels line, at the bench scene's shapes (the full-size paths);
     # launches from the training main paths: kernels 1-4 from path 2,

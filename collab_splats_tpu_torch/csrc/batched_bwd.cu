@@ -52,7 +52,8 @@
 // no more; after the batch the 8 warps' partials are added in a fixed
 // order.  No atomics, and every sum is taken in a fixed order, so the
 // result is the same bits on every run.  A batch whose mask is all zero
-// writes zeros.  chip_ablate.py times the variants of these choices.
+// writes zeros.  The carry, T_excl and 1 / (1 - alpha) use log1pf, expf
+// and a true division, as the forward and the plain version do.
 // Shared memory: 73 KB at V = 6, 80 KB at V = 19 (dynamic); at V = 6 three
 // blocks fit on an SM (nvcc -Xptxas -v prints the registers).
 // Never build with --use_fast_math: the live decisions must round as the
@@ -135,7 +136,7 @@ __device__ __forceinline__ void load_row(const float* src, float (&r)[N]) {
   }
 }
 
-// The register budget of 2 blocks an SM: that of 3 measured no faster.
+// The register budget of 2 blocks an SM.
 template <int V>
 __global__ void __launch_bounds__(kPixels, 2)
 composite_bwd_kernel(const float* __restrict__ g,
@@ -208,9 +209,7 @@ composite_bwd_kernel(const float* __restrict__ g,
     // Rebuild the batch's exclusive carries from the banked prefix, keeping
     // them only for the live pairs: a dead pair's entry is kDead, and a
     // masked slot leaves the carry as it is and is never read.  The live
-    // decision rounds as the forward's; the carry adds log(1 - alpha) by
-    // the SFU's log, which differs from the forward's log1pf in the last
-    // bits (a carry feeds only T_excl, never a decision).
+    // decision and the carry round as the forward's.
     float carry = prefix[((size_t)b * gridDim.x + tile) * kPixels + pix];
     for (int j = 0; j < nb; ++j) {
       if (!((mbits >> j) & 1)) continue;
@@ -223,7 +222,7 @@ composite_bwd_kernel(const float* __restrict__ g,
           __fmul_rn(r[8], expf(-fminf(fmaxf(sigma, 0.f), 50.f))), alpha_max);
       const bool live = sigma >= 0.f && a >= alpha_cutoff;
       sc[j * kPixels + p] = live ? carry : kDead;
-      if (live) carry = __fadd_rn(carry, __logf(1.f - a));
+      if (live) carry = __fadd_rn(carry, log1pf(-a));
     }
 
     // Back to front through the batch.  A dead pair adds nothing: w = 0,
@@ -250,14 +249,12 @@ composite_bwd_kernel(const float* __restrict__ g,
         const float tpix_raw = __fadd_rn(__fadd_rn(r[5], __fmul_rn(r[6], du)),
                                          __fmul_rn(r[7], dv));
         const float tpix = fmaxf(tpix_raw, near_plane);
-        // T_excl and 1 / (1 - alpha) feed only the gradient: the SFU's exp
-        // and a fast division are within its tolerance.
-        const float t_excl = __expf(ex);
+        const float t_excl = expf(ex);
         const float w = keep ? alpha * t_excl : 0.f;
         float rv = gd * tpix;
 #pragma unroll
         for (int v = 0; v < V; ++v) rv = fmaf(gv[v], r[9 + v], rv);
-        const float inv1m = __fdividef(1.f, 1.f - alpha);
+        const float inv1m = 1.f / (1.f - alpha);
         const float d_alpha = t_excl * rv - suffix * inv1m + ga_tt * inv1m;
         if (keep) suffix += w * rv;
         const float d_alpha_raw =

@@ -36,11 +36,14 @@
 //     values are all loaded before the first is added, so a group keeps
 //     kUnroll reads in flight.  The block's sums are gathered in shared
 //     memory and written out as one contiguous stretch of out.  A gaussian
-//     longer than kLong rows is left to its block: after the walk all 256
-//     threads stage its rows in shared memory, the next stage's reads in
-//     flight while thread c adds column c of the current one, so a gaussian
-//     that covers many tiles is read kStageFloats values at a time, not
-//     kUnroll rows.
+//     longer than long_rows rows (the wrapper's 128) is left to its block:
+//     after the walk all 256 threads stage its rows in shared memory, the
+//     next stage's reads in flight while thread c adds column c of the
+//     current one, so a gaussian that covers many tiles is read
+//     kStageFloats values at a time, not kUnroll rows.  A group alone would
+//     take its rows one dependent step of kUnroll after another: a
+//     gaussian over all 3,600 tiles of a 1280x720 image would then set the
+//     kernel's time.
 // Every output element is one sequential float32 sum in sorted order,
 // starting from 0 -- the plain version's order, so the result is the same
 // bits as the plain segment_reduce, on every run.  Long segments are not
@@ -55,7 +58,6 @@ constexpr int kItems = 16;       // merged elements per thread in launch 1
 constexpr int kTileItems = kThreads * kItems;  // ... and per block
 constexpr int kUnroll = 8;       // rows a group loads before adding them
 constexpr int kSumsBlocks = 4;   // blocks an SM holds of launch 2
-constexpr int kLong = 128;       // longer segments are summed by the block
 constexpr int kStageFloats = 2048;  // shared-memory stage of the long path
 constexpr int kFetch = kStageFloats / kThreads;  // a thread's share of it
 
@@ -129,13 +131,14 @@ segment_starts_kernel(const int* __restrict__ a, int m, int n,
 // rows of the group's kGroup consecutive gaussians in sorted order, kUnroll
 // rows per step: the permutation entries and the row values of a step are
 // loaded before any of them is added, then added one after another, each to
-// the sum of the gaussian it belongs to.  Gaussians longer than kLong rows
-// are skipped here and summed by the whole block afterwards.
+// the sum of the gaussian it belongs to.  Gaussians longer than long_rows
+// rows are skipped here and summed by the whole block afterwards.
 __global__ void __launch_bounds__(kThreads, kSumsBlocks)
 segment_sums_kernel(const int* __restrict__ start,
                     const long long* __restrict__ order,
                     const float* __restrict__ rows, int n, int d, int lanes,
-                    int group, int stage, float* __restrict__ out) {
+                    int group, int stage, int long_rows,
+                    float* __restrict__ out) {
   extern __shared__ int smem[];
   const int per_block = kThreads / lanes * group;
   int* s = smem;                                   // [per_block + 1] starts
@@ -145,7 +148,7 @@ segment_sums_kernel(const int* __restrict__ start,
   const int nloc = min(per_block, n - g0);
   for (int t = threadIdx.x; t <= nloc; t += kThreads) s[t] = start[g0 + t];
   __syncthreads();
-  auto is_long = [&](int j) { return s[j + 1] - s[j] > kLong; };
+  auto is_long = [&](int j) { return s[j + 1] - s[j] > long_rows; };
 
   const int ga = (int)(threadIdx.x / lanes) * group;
   const int gb = min(ga + group, nloc);
@@ -158,7 +161,7 @@ segment_sums_kernel(const int* __restrict__ start,
     float acc = 0.f;
     // Close gaussian gq (its sum, or 0 if it owns no row) and open the next.
     auto close = [&]() {
-      if (hi - lo <= kLong) sums[gq * d + c] = acc;
+      if (hi - lo <= long_rows) sums[gq * d + c] = acc;
       acc = 0.f;
       lo = hi;
       if (++gq < gb) hi = s[gq + 1];
@@ -182,7 +185,7 @@ segment_sums_kernel(const int* __restrict__ start,
       }
       i += nk;
       // Past the rest of a long gaussian without reading it.
-      if (hi - lo > kLong) i = max(i, hi);
+      if (hi - lo > long_rows) i = max(i, hi);
     }
     while (gq < gb) close();
   }
@@ -243,13 +246,15 @@ segment_sums_kernel(const int* __restrict__ start,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launches; -1 for bad lane counts.
-// ``start`` is the caller's int32 scratch of n + 1 entries.
+// Returns cudaGetLastError() after the launches; -1 for bad arguments.
+// ``start`` is the caller's int32 scratch of n + 1 entries; segments longer
+// than ``long_rows`` rows are summed by a whole block.
 extern "C" int segment_sum_sorted(const void* sorted_ids, const void* order,
                                   const void* rows, int m, int n, int d,
-                                  int lanes, void* start, void* out,
-                                  void* stream) {
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || d < 1)
+                                  int lanes, int long_rows, void* start,
+                                  void* out, void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || d < 1 ||
+      long_rows < 0)
     return -1;
   auto st = static_cast<cudaStream_t>(stream);
   auto* sp = static_cast<int*>(start);
@@ -267,13 +272,15 @@ extern "C" int segment_sum_sorted(const void* sorted_ids, const void* order,
   const int blocks = (n + per_block - 1) / per_block;
   const size_t smem = sizeof(int) * (size_t)(per_block + 1) +
                       sizeof(float) * ((size_t)per_block * d + stage * width);
-  err = cudaFuncSetAttribute(segment_sums_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {  // only wide rows need more than the default
+    err = cudaFuncSetAttribute(segment_sums_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   segment_sums_kernel<<<blocks, kThreads, smem, st>>>(
       sp, static_cast<const long long*>(order),
-      static_cast<const float*>(rows), n, d, lanes, group, stage,
+      static_cast<const float*>(rows), n, d, lanes, group, stage, long_rows,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,9 @@ import torch
 from . import build
 
 launches = 0   # kernel launches since the caller last reset it
+# Segments longer than this many rows are summed by a whole block of the
+# kernel, not by one group of lanes.
+LONG_ROWS = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,19 +48,21 @@ def segment_sum_plain(sorted_ids: torch.Tensor, order: torch.Tensor,
 @functools.cache
 def _fn():
     fn = build.load("segsum_kernel").segment_sum_sorted
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
     fn.restype = _I
     return fn
 
 
 def segment_sum_sorted(sorted_ids: torch.Tensor, order: torch.Tensor,
-                       rows: torch.Tensor, n: int) -> torch.Tensor:
+                       rows: torch.Tensor, n: int,
+                       long_rows: int = LONG_ROWS) -> torch.Tensor:
     """Per-id sums of ``rows`` [M, D] float32 into [n, D].
 
     ``sorted_ids`` [M] int32 are the row ids in [0, n) sorted ascending and
     ``order`` [M] int64 the sort's permutation (``torch.sort``'s indices):
     out[g] = sum of rows[order[i]] over the i with sorted_ids[i] == g, in
-    sorted order; 0 for an id that owns no row.
+    sorted order; 0 for an id that owns no row.  ``long_rows`` moves only
+    the work between the kernel's paths (the result is the same bits).
     """
     dev = rows.device
     if dev.type == "cpu":
@@ -90,8 +95,8 @@ def segment_sum_sorted(sorted_ids: torch.Tensor, order: torch.Tensor,
         lanes *= 2
     with torch.cuda.device(dev):
         rc = _fn()(sorted_ids.data_ptr(), order.data_ptr(), rows.data_ptr(),
-                   m, n, d, lanes, start.data_ptr(), out.data_ptr(),
-                   build.stream_handle(dev))
+                   m, n, d, lanes, long_rows, start.data_ptr(),
+                   out.data_ptr(), build.stream_handle(dev))
     build.check(rc, "segment_sum_sorted")
     global launches
     launches += 1

@@ -61,8 +61,7 @@ def imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_ablate.py"],
-    ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     bad = sorted(set(imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path} imports {bad}"

@@ -145,6 +145,29 @@ def test_expand_rows_backward_on_skewed_ids_matches_pallas(d):
     assert np.all(got[~owned] == 0.0) and np.all(ref[~owned] == 0.0)
 
 
+@pytest.mark.parametrize("d", [2, 15])
+def test_expand_rows_backward_on_tile_length_ids_matches_pallas(d):
+    """Ids as a tiled layout makes them, at most one row per tile: a few
+    own more rows than ``LONG_ROWS`` (which the kernel sums with a whole
+    block), the others one or two."""
+    rng = np.random.default_rng(10 + d)
+    tiles = segsum_kernel.LONG_ROWS + 22
+    long_ids = np.array([3, 4, 350, N - 1], np.int32)
+    others = np.setdiff1d(np.arange(N, dtype=np.int32), long_ids)
+    idx = rng.permutation(np.concatenate([
+        np.repeat(long_ids, tiles), rng.choice(others, M - 4 * tiles)]))
+    rows = rng.normal(size=(M, d)).astype(np.float32)
+    table = torch.zeros((N, d), requires_grad=True)
+    segsum.expand_rows(table, torch.from_numpy(idx)).backward(
+        torch.from_numpy(rows))
+    ref = np.asarray(expand_bwd_pallas(N, jnp.asarray(idx),
+                                       jnp.asarray(rows), interpret=True))
+    np.testing.assert_allclose(table.grad.numpy(), ref, rtol=1e-6,
+                               atol=1e-6 * np.abs(ref).max())
+    counts = np.bincount(idx, minlength=N)
+    assert np.all(counts[long_ids] == tiles) and counts[others].max() < tiles
+
+
 def test_spread_masked_keeps_live_ids():
     idx = torch.tensor([5, 3, 9, 1], dtype=torch.int32)
     mask = torch.tensor([True, False, True, False])
