@@ -3,9 +3,10 @@
 Builds the port's six CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the per-tile
 pair at C = 3 and 16 colour channels and stop_threshold 0 and 1e-4; the
-sorted segment sum also on a skewed id stream: one id owning 2^17 rows, a
-run of 120,000 ids owning none), and the ``backend="pallas"`` render
-against the ``"xla"`` render.  Then it drives the port's four main paths:
+four compositing kernels also on the seeded edge cases of
+``data/compositing_cases.py``; the sorted segment sum also on a skewed id
+stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
+``backend="pallas"`` render against the ``"xla"`` render.  Then it drives the port's four main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -23,8 +24,9 @@ against the ``"xla"`` render.  Then it drives the port's four main paths:
 It checks what comes out, the kernels each path launches, and prints
 per-layer and per-kernel timings (the segment sum at the expand_rows
 backward's D = 15 rows and the statistic's D = 2 rows, each beside
-``index_add_``), with the share of (warp, slot) pairs in which the
-compositing backward finds a live pixel.
+``index_add_``), with the share of (warp, slot) pairs in which each
+compositing backward finds a live pixel and the share of pairs that the
+batched forward's cull decides without exp.
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -50,7 +52,7 @@ import torch
 from collab_splats_tpu_torch.core import compositing
 from collab_splats_tpu_torch.core.options import RenderOptions
 from collab_splats_tpu_torch.core.projection import project_gaussians
-from collab_splats_tpu_torch.data import synthetic
+from collab_splats_tpu_torch.data import compositing_cases, synthetic
 from collab_splats_tpu_torch.models import gaussians, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
@@ -217,9 +219,10 @@ def check_decode(plan) -> float:
 
 
 def check_composite(g, mask, ntx):
-    """The forward kernel's outputs and banked prefix against the plain
-    version's, within rtol/atol 1e-5.  Returns the max abs difference and
-    the kernel's outputs."""
+    """The forward kernel's maps against the plain version's within
+    rtol/atol 1e-5, its median slot (at every covered pixel) and banked
+    prefix bit-identical.  Returns the max abs difference and the kernel's
+    outputs."""
     got = batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
                                         bank_prefix=True)
     ref = compositing.fused_forward(g, mask, ntx, TS, NEAR, tile_chunk=256,
@@ -229,10 +232,14 @@ def check_composite(g, mask, ntx):
         if name:
             torch.testing.assert_close(a, b, msg=f"composite {name}", **TOL)
     hit = got[1] > 0
+    bad_idx = int((got[4] != ref[4])[hit].sum())
+    bad_prefix = int((got[5] != ref[5]).sum())
     say(f"  composite V={g.shape[2] - 9}: med_idx differs from the plain "
-        f"version at {int((got[4] != ref[4])[hit].sum())} of "
-        f"{int(hit.sum())} covered pixels; banked prefix max abs err "
-        f"{float((got[5] - ref[5]).abs().max()):.3g}")
+        f"version at {bad_idx} of {int(hit.sum())} covered pixels; banked "
+        f"prefix differs at {bad_prefix} of {got[5].numel()} entries")
+    if bad_idx or bad_prefix:
+        raise AssertionError("composite: med_idx or the banked prefix is not "
+                             "bit-identical to the plain version")
     err = max(float((a - b).abs().max())
               for i, (a, b) in enumerate(zip(got, ref)) if i != 4)
     return err, got
@@ -554,12 +561,32 @@ def live_warp_slots(g, mask, ntx):
     """(warp, window slot) pairs in which some pixel of the warp's 32 passes
     the alpha cutoff (the pairs kernel 3 reduces over a warp; its warps own
     8x4 blocks of the tile), and all (warp, masked-in slot) pairs."""
-    live = 0
-    for a in tile_alphas(g, mask, ntx):
-        t, k = a.shape[0], a.shape[2]
-        blocks = (a > 0).reshape(t, 4, 4, 2, 8, k).permute(0, 1, 3, 2, 4, 5)
-        live += int(blocks.reshape(t, 8, 32, k).any(2).sum())
+    live = sum(int(warp_blocks(a > 0).sum())
+               for a in tile_alphas(g, mask, ntx))
     return live, TS * TS // 32 * int((mask > 0).sum())
+
+
+def cull_shares(g, mask, ntx):
+    """Of the (pixel, masked-in window slot) pairs: the share kernel 2
+    decides without exp (sigma < 0, or beyond sigma_cut), and the share
+    whose alpha passes the cutoff."""
+    culled = live = 0
+    for s in range(0, g.shape[0], 64):
+        gg = g[s:s + 64]
+        up, vp = compositing.pixel_centers(
+            torch.arange(s, s + gg.shape[0], device=g.device), ntx, TS)
+        du = up[:, :, None] - gg[:, None, :, 0]
+        dv = vp[:, :, None] - gg[:, None, :, 1]
+        sigma = 0.5 * (gg[:, None, :, 2] * du * du
+                       + gg[:, None, :, 4] * dv * dv) \
+            + gg[:, None, :, 3] * du * dv
+        cut = compositing.sigma_cut(gg[..., 8])[:, None, :]
+        m = mask[s:s + 64, None, :] > 0
+        culled += int((((sigma < 0) | (sigma > cut)) & m).sum())
+    for a in tile_alphas(g, mask, ntx):
+        live += int((a > 0).sum())
+    masked = TS * TS * int((mask > 0).sum())
+    return culled / masked, live / masked
 
 
 def composite_bound(g, mask, ntx):
@@ -699,10 +726,10 @@ def check_tiles_bwd(args, what) -> float:
     return err
 
 
-def tiles_pairs(ti, nchunks):
-    """(pixel, slot) pairs of the chunks the forward ran: inside the
-    segments, and of those the pairs whose alpha passes the cutoff."""
-    valid = live = 0
+def tile_chunk_alphas(ti, nchunks):
+    """Per group of tiles and chunk the forward ran: each (pixel, slot)
+    pair's alpha [Tg, P, CHUNK], zero where it does not pass the cutoff,
+    and which slots lie inside the segments [Tg, CHUNK]."""
     lane = torch.arange(composite.CHUNK, device=ti.isect.device)
     for ci in range(ti.max_chunks):
         t = torch.nonzero(nchunks > ci)[:, 0]
@@ -712,13 +739,39 @@ def tiles_pairs(ti, nchunks):
             b = ti.isect[:9][:, cols]                     # [9, Tg, CHUNK]
             inside = (ci * composite.CHUNK + lane)[None] < ti.lens[tt, None]
             up, vp = compositing.pixel_centers(tt, ti.ntx, TS)
-            alpha = compositing.splat_alpha(
+            yield compositing.splat_alpha(
                 up[:, :, None] - b[0][:, None], vp[:, :, None] - b[1][:, None],
                 b[2:5].permute(1, 2, 0)[:, None], b[8][:, None],
-                inside[:, None])
-            valid += TS * TS * int(inside.sum())
-            live += int((alpha > 0).sum())
+                inside[:, None]), inside
+
+
+def tiles_pairs(ti, nchunks):
+    """(pixel, slot) pairs of the chunks the forward ran: inside the
+    segments, and of those the pairs whose alpha passes the cutoff."""
+    valid = live = 0
+    for alpha, inside in tile_chunk_alphas(ti, nchunks):
+        valid += TS * TS * int(inside.sum())
+        live += int((alpha > 0).sum())
     return valid, live
+
+
+def warp_blocks(live):
+    """[T, P, K] pixel flags -> [T, 8, K]: whether some pixel of each
+    warp's 8x4 block of the tile (as kernels 3 and 6 lay them out) is set."""
+    t, k = live.shape[0], live.shape[2]
+    blocks = live.reshape(t, 4, 4, 2, 8, k).permute(0, 1, 3, 2, 4, 5)
+    return blocks.reshape(t, 8, 32, k).any(2)
+
+
+def tiles_live_warp_slots(ti, nchunks):
+    """(warp, slot) pairs of the chunks the forward ran in which some pixel
+    of the warp passes the alpha cutoff (the pairs kernel 6 reduces over a
+    warp), and all (warp, slot) pairs inside the segments."""
+    live = valid = 0
+    for alpha, inside in tile_chunk_alphas(ti, nchunks):
+        live += int(warp_blocks(alpha > 0).sum())
+        valid += TS * TS // 32 * int(inside.sum())
+    return live, valid
 
 
 def composite_tiles_bound(ti, nchunks):
@@ -777,6 +830,45 @@ def tiles_parity(name, scene):
         f"per row group, repeat bit-identical); max_chunks "
         f"{ti3.max_chunks}, M={ti3.isect.shape[1]}")
     return ti3, errs, early[3]
+
+
+def check_edge_cases(dev):
+    """Kernels 2, 3, 5 and 6 against their plain versions on the seeded
+    edge cases of ``data/compositing_cases.py`` (the CPU tests hold the
+    plain versions against the JAX package on the same inputs): kernel 2's
+    maps, median slot and banked prefix and kernel 3 at V = 6 and 19;
+    kernel 5 at C = 3 and 16 and stop 0 and 1e-4, kernel 6 on each of
+    those forwards' nchunks and on one chunk fewer.  The tied weights are
+    searched on the card, so the tie holds in the kernels' arithmetic.
+    Returns the max abs errors."""
+    errs = dict.fromkeys(("composite", "composite_bwd", "composite_tiles",
+                          "composite_tiles_bwd"), 0.0)
+    tx, ty = compositing_cases.TIE_PIXEL
+    tie_pix = ty * TS + tx
+    for v in (6, 19):
+        e = compositing_cases.edge_cases(v, dev)
+        err, fwd = check_composite(e.g, e.mask, e.ntx)
+        if int(fwd[4][compositing_cases.TIE_TILES[0], tie_pix]) != \
+                compositing_cases.TIE_SLOTS[0]:
+            raise AssertionError("composite: the tie pixel did not keep the "
+                                 "first of its tied slots")
+        errs["composite"] = max(errs["composite"], err)
+        errs["composite_bwd"] = max(errs["composite_bwd"], check_composite_bwd(
+            e.g, e.mask, e.ntx, fwd, 4, "edge cases"))
+        ti = TilesInputs(e.isect, e.starts, e.lens, e.ntx, v - 3,
+                         e.max_chunks)
+        for stop in (0.0, 1e-4):
+            err, nch, _ = check_tiles_fwd(ti, stop)
+            errs["composite_tiles"] = max(errs["composite_tiles"], err)
+            for n in (nch, torch.clamp(nch - 1, min=0)):
+                errs["composite_tiles_bwd"] = max(
+                    errs["composite_tiles_bwd"],
+                    check_tiles_bwd(ti.bwd_args(n, 5), "edge cases"))
+    say("parity edge cases (tied weights, segments of 1-129 slots, a dead "
+        "batch, an early exit, masked slots between live ones): "
+        + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items())
+        + "; median slots and banked prefixes bit-identical")
+    return errs
 
 
 def check_pallas_vs_xla(name, scene):
@@ -1311,6 +1403,7 @@ def main() -> int:
     if not sum(early for _, _, early in tiles_in.values()):
         raise AssertionError("composite_tiles: no tile ended early at "
                              "stop_threshold 1e-4")
+    edge_errs = check_edge_cases(dev)
     for name, sc in scenes.items():
         check_pallas_vs_xla(name, sc)
     seg_err = check_segsum(
@@ -1516,6 +1609,11 @@ def main() -> int:
             f"{rec['composite_plain_ms']:.4f} ms, bound "
             f"{rec['composite_bound'][0]:.4f} ms by "
             f"{rec['composite_bound'][1]}")
+        culled, live_share = cull_shares(g, mask, ntx)
+        say(f"composite {name} (V=6): of the (pixel, masked-in slot) pairs "
+            f"{100 * culled:.2f}% are decided by the cull without exp, "
+            f"{100 * (1 - culled):.2f}% run exp, {100 * live_share:.2f}% are "
+            f"live")
         players = pallas_layer_times(params, alive, cams[0],
                                      pallas_scenes[name][3])
         say(f"layers {name} camera 0, pallas (median of {REPS}, ms): "
@@ -1603,6 +1701,12 @@ def main() -> int:
         f"{b['composite_tiles_bwd_bound'][0]:.4f} ms by "
         f"{b['composite_tiles_bwd_bound'][1]} "
         f"({int(pkin['nchunks'].sum())} chunks)")
+    tlive, tall = tiles_live_warp_slots(pkin["tiles"], pkin["nchunks"])
+    say(f"composite_tiles_bwd at the pallas train step: {tlive} of {tall} "
+        f"(warp, slot) pairs inside the segments of the chunks run "
+        f"({100 * tlive / tall:.2f}%) have a pixel of the warp's 8x4 block "
+        f"whose alpha passes the cutoff; only those run the gradient and "
+        f"the butterfly")
     longest, share = long_rows_share(pkin["idx"], pkin["segsum_args"][3])
     say(f"segment_sum at the pallas train step: longest segment {longest} "
         f"rows, {100 * share:.4f}% of the rows in segments over "
@@ -1634,6 +1738,7 @@ def main() -> int:
             "launches": launches[key],
             "max_abs_err": (max(seg_err, *seg_errs) if key == "segment_sum"
                             else max(step_errs.get(key, 0.0),
+                                     edge_errs.get(key, 0.0),
                                      *(r["errs"][key]
                                        for r in records.values()))),
             "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],

@@ -56,6 +56,58 @@ def splat_alpha(du: torch.Tensor, dv: torch.Tensor, conic: torch.Tensor,
     return torch.where(keep, alpha, torch.zeros_like(alpha))
 
 
+# Added to ln(255 opacity) by :func:`sigma_cut`: far more than the float32
+# rounding of the log, of exp and of the product opacity * exp(-sigma)
+# (together below 2e-5 in sigma), so the cull never drops a live pair.
+SIGMA_CUT_MARGIN = 1e-4
+SIGMA_CLAMP = 50.0   # splat_alpha clamps sigma to [0, SIGMA_CLAMP]
+
+
+def sigma_cut(opacity: torch.Tensor) -> torch.Tensor:
+    """The exact cull of the compositing kernels, in float32: a pair whose
+    quadratic form sigma exceeds ``sigma_cut(opacity)`` has alpha below
+    ALPHA_CUTOFF, so the kernels skip its exp.
+
+    ln(255 opacity) + SIGMA_CUT_MARGIN, and +inf where that is not below
+    SIGMA_CLAMP (past the clamp alpha stops falling with sigma) or is NaN.
+    The kernels compute it as ``__fadd_rn(logf(__fmul_rn(opac, 255.f)),
+    1e-4f)`` once per staged slot.
+    """
+    cut = torch.log(opacity * 255.0) + SIGMA_CUT_MARGIN
+    return torch.where(cut < SIGMA_CLAMP, cut,
+                       torch.full_like(cut, float("inf")))
+
+
+def sigma_cut_extent(conic: torch.Tensor, cut: torch.Tensor):
+    """Half-extents (eu, ev), float64, of the box of pixel offsets (du, dv)
+    from a splat's centre at which a pair can be live: a pair outside it
+    has float32 sigma beyond ``cut`` (:func:`sigma_cut`).  The compositing
+    kernels test it once per slot against each warp's block of pixels and
+    skip the slot in warps it cannot reach.
+
+    The box is that of the ellipse 0.5 d^T M d <= 1.02 cut + 0.01, M =
+    [[a, b], [b, c]] from ``conic`` [..., 3], widened by 0.01: float32
+    sigma errs from the exact form by under 1e-6 (a du^2 + c dv^2) / 2,
+    which is under 1% of the exact form where M's eigenvalues differ by
+    under 1e4 times.  +inf where that does not hold (or a value is not
+    finite, or the cut is infinite); -inf where the cut is negative, since
+    then no pair is live.
+    """
+    a, b, c = (conic[..., i].double() for i in range(3))
+    cut = cut.double()
+    det = a * c - b * b
+    tr = a + c
+    lmin = 0.5 * (tr - torch.sqrt((a - c) ** 2 + 4.0 * b * b))
+    ok = (a > 0) & (c > 0) & (det > 0) & (lmin * 1e4 >= tr) \
+        & (cut < SIGMA_CLAMP)
+    k = 2.0 * (1.02 * torch.clamp(cut, min=0.0) + 0.01)
+    inf = torch.full_like(a, float("inf"))
+    eu = torch.where(ok, torch.sqrt(k * c / det) + 0.01, inf)
+    ev = torch.where(ok, torch.sqrt(k * a / det) + 0.01, inf)
+    none = cut < 0
+    return torch.where(none, -inf, eu), torch.where(none, -inf, ev)
+
+
 def pixel_centers(tile_ids: torch.Tensor, ntx: int, ts: int):
     """Pixel-centre coordinates (up, vp), each [T, ts*ts], of the given
     tiles; pixel p of a tile is row p // ts, column p % ts."""

@@ -6,51 +6,72 @@
 // composite_fwd.cu.  Contract: d_isect [D, M] equals ops/cuda/composite.py::
 // composite_tiles_bwd_plain; it is written only in the chunks the forward
 // ran (nchunks) and only in the 12 + C rows the compositor reads, and the
-// caller passes it zeroed.  Per tile, over its first nchunks chunks:
-//
-// Phase 1 replays the forward and keeps, per chunk and pixel, the log T
-// carried into the chunk and the sum over its slots of g_w * w, with
-//   g_w = g_colour . colour + g_normal . normal + g_depth * tpix;
-// it also finds the maximum weight wmax and whether the median crossed
-// 1/2 (the forward's found flag, from the same expression).
-// Phase 2 walks the chunks again and, per (pixel, slot), with t_in =
-// exp(lc) / (1 - alpha), suffix = the sum of g_w * w over the later slots
-// of the chunk plus the later chunks' sums, t_final = exp(log T after the
-// processed chunks):
+// caller passes it zeroed.  Per (pixel, slot) of a tile's first nchunks
+// chunks, with lc the log T after the slot (as in the forward), t_in =
+// exp(lc) / (1 - alpha), w = alpha t_in, suffix = the sum of g_w w over the
+// later slots of the walk, t_final = exp(log T after the walk) and
+//   g_w = g_colour . colour + g_normal . normal + g_depth * tpix:
 //   d_alpha = (g_w t_in - suffix / (1 - alpha) + g_alpha t_final / (1 - alpha))
 //             on live slots,
 //   g_t     = (g_depth w + g_median [slot is the median slot]) where the
 //             slot is live and its depth is above the near plane,
 //   d_raw   = d_alpha where opac exp(-clip(sigma)) < 0.999,
 //   d_sigma = -raw d_raw,
-// and reduces over the tile's 256 pixels, per slot: d_mean = -sum(d_sigma
+// reduced over the tile's 256 pixels, per slot: d_mean = -sum(d_sigma
 // (conic . d) + g_t plane), d_conic = sums of d_sigma (du^2/2, du dv,
 // dv^2/2), d_depth/plane = sums of g_t (1, du, dv), d_opac = sum d_raw
 // exp(-clip(sigma)), d_normal = sum g_normal w, d_colour = sum g_colour w.
 // The median slot is the forward's: the first live slot with lc <= log 1/2,
-// else (no crossing) the first slot whose w equals wmax.
+// else (no crossing) the first slot of maximum weight.
 //
 // Bound on the H100: operations -- per (pixel, slot) pair of the processed
 // chunks the alpha chain (~23 FP32 operations), and per live pair the
-// transmittance (exp, log1p, division), g_w (C + 4 FMAs), d_alpha, g_t,
-// d_sigma and the 12 + C products and adds of the pixel sums.
+// transmittance (exp, log1p, division), g_w, d_alpha, g_t, d_sigma and the
+// 12 + C products and adds of the pixel sums.  As for batched_bwd.cu, the
+// card runs a warp's instructions for all 32 pixels whenever one of them
+// needs them, so it pays per (warp, slot), and each live (warp, slot)'s
+// 12 + C sums must cross the warp.  So the design below replays each pair's
+// chain as few times as it can, skips dead pairs and warps cheaply, and
+// reduces a live slot's sums in one butterfly.
 //
-// Design: one block per 16x16 tile, one thread per pixel.  Each chunk's
-// 12 + C rows are staged in shared memory for both phases.  Phase 1's
-// per-chunk stores go to a global scratch [T, 2, max_chunks, 256] the
-// wrapper allocates, each thread reading back only its own entries, so any
-// max_chunks works.  Phase 2 first walks the chunk front to back to find
-// the median slot of the chunk and to keep the in-chunk carry at every
-// 32-slot boundary; then it walks the chunk back to front in 32-slot
-// batches, each batch's log-transmittances rebuilt front to back from its
-// boundary carry with the forward's rounding into a [32, 256] shared table
-// (no transmittance is recovered by dividing through 1 - alpha), with the
-// in-chunk suffix in a register.  Each slot's 12 + C pixel sums are reduced
-// per warp with shuffles (skipped, as zeros, when no pixel of the warp
-// sees the splat) and after the batch the 8 warps' partials are added in a
-// fixed order: no atomics, so a repeated launch gives the same bits.
-// Shared memory: 55 KB at C = 3, 74 KB at C = 16 (dynamic).  Never build
-// with --use_fast_math: the live and median decisions must round as the
+// Design: one block per 16x16 tile, one thread per pixel; warp w owns the
+// 8x4 pixel block at (8 (w % 2), 4 (w / 2)).  Each chunk is staged in
+// shared memory as 128 rows padded to whole float4s (16 floats at C = 3,
+// 32 at C = 16), two threads per slot writing whole float4s, and read as
+// 16-byte broadcasts:
+//   u v a b | c cut opac depth | plane_u plane_v normal colours...
+// where cut = sigma_cut(opac) (core/compositing.py), computed once per slot
+// while staging: a pair with sigma beyond it is dead whatever exp rounds
+// to, so the exp runs only where 0 <= sigma <= cut (an exact cull).  Each
+// staged slot also gets a mask of the warps whose 8x4 block its box
+// (core/compositing.py::sigma_cut_extent, in double) reaches: a warp
+// outside it skips the slot after one shared-memory read, in every pass,
+// where it would otherwise form sigma for its 32 pixels.
+// Phase 1 replays the forward once, front to back, and banks per chunk and
+// pixel the log T carried into it and the in-chunk carry cum at each
+// 32-slot batch boundary, into a global scratch [T, max_chunks, 4, 256]
+// the wrapper allocates (each thread reads back only its own entries);
+// it also finds the median slot: the first live slot with lc <= log 1/2,
+// else the first slot of maximum weight by a running strict > (no weight
+// is formed once the pixel has crossed).  Phase 2 walks the chunks and
+// their 32-slot batches back to front, with the suffix in one register.
+// Each batch's lc is rebuilt front to back from the banked carries into a
+// [32, 256] shared table with the forward's rounding (__fadd_rn slot by
+// slot), kDead marking dead pairs; then the batch is walked back to front:
+// a slot that no pixel of the warp keeps costs one table read and a vote;
+// otherwise each lane forms its 12 + C terms (zero where its pixel does not
+// keep the slot) and a transposing butterfly (reduce-scatter, as in
+// batched_bwd.cu) leaves in lane l the warp's sum of term l: 16 shuffles at
+// C = 3, 31 at C = 16.  Lane l writes it over its own table entry for the
+// slot, which it has read; after the batch the 8 warps' partials are added
+// in a fixed order into a [12 + C, 33] table of slot sums (threads on
+// consecutive terms, so no bank is read twice at once) and written out row
+// by row.  No atomics: a repeated launch gives the same bits.  Shared
+// memory: 43.5 KB at C = 3, 53.4 KB at C = 16 (dynamic), so four blocks
+// fit on an SM, and __launch_bounds__ holds the registers to 64 for them
+// (at C = 16 a few values spill).  32-slot batches and four blocks ran
+// faster than 64-slot batches and two or three blocks.  Never build with
+// --use_fast_math: the live and median decisions must round as the
 // forward's did.
 
 #include <cuda_runtime.h>
@@ -61,48 +82,178 @@ constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
 constexpr int kWarps = kPixels / 32;
 constexpr int kChunk = 128;
-constexpr int kSub = 32;
-constexpr int kNSub = kChunk / kSub;
+constexpr int kBatch = 32;
+constexpr int kNBatch = kChunk / kBatch;
 constexpr int kBase = 12;
+// The lc table's entry for a dead pair: a live pair's lc is negative.
+constexpr float kDead = 1.f;
+// Row stride of the batch's sums [R, kBatch]: odd, so that a term's sums
+// over slots and a slot's sums over terms both spread over the banks.
+constexpr int kSumStride = kBatch + 1;
 
 template <int C>
-constexpr int smem_floats() {
-  // chunk rows, the batch's log-transmittances, warp partials
-  return (kBase + C) * kChunk + kSub * kPixels + kWarps * kSub * (kBase + C);
-}
-
-// The splat chain of one (pixel, slot), in PyTorch's order of operations.
-struct Slot {
-  float du, dv, sigma, e, raw, alpha, t_raw, tpix;
-  bool keep;
+struct Layout {
+  static constexpr int R = kBase + C;              // rows read, pixel sums
+  static constexpr int kPad = R <= 16 ? 16 : 32;   // terms a lane reduces
+  static_assert(R <= 32, "one slot's sums must fit in a warp");
+  static constexpr int kRow = R + 1 <= 16 ? 16 : 32;  // + the cut
+  // chunk rows, the batch's lc table (and the warps' partials), the
+  // slots' warp masks, the batch's sums
+  static constexpr int kSmemFloats =
+      kChunk * kRow + kBatch * kPixels + kChunk + R * kSumStride;
 };
 
-__device__ __forceinline__ Slot slot_chain(const float* sb, int j, float u,
-                                           float v, float near_plane) {
-  const float alpha_cutoff = (float)(1.0 / 255.0);
-  const float alpha_max = (float)0.999;
-  Slot s;
-  s.du = __fsub_rn(u, sb[j]);
-  s.dv = __fsub_rn(v, sb[kChunk + j]);
-  const float q =
-      __fadd_rn(__fmul_rn(__fmul_rn(sb[2 * kChunk + j], s.du), s.du),
-                __fmul_rn(__fmul_rn(sb[4 * kChunk + j], s.dv), s.dv));
-  s.sigma = __fadd_rn(__fmul_rn(0.5f, q),
-                      __fmul_rn(__fmul_rn(sb[3 * kChunk + j], s.du), s.dv));
-  s.e = expf(-fminf(fmaxf(s.sigma, 0.f), 50.f));
-  s.raw = __fmul_rn(sb[8 * kChunk + j], s.e);
-  const float a = fminf(s.raw, alpha_max);
-  s.keep = s.sigma >= 0.f && a >= alpha_cutoff;
-  s.alpha = s.keep ? a : 0.f;
-  s.t_raw = __fadd_rn(__fadd_rn(sb[5 * kChunk + j],
-                                __fmul_rn(sb[6 * kChunk + j], s.du)),
-                      __fmul_rn(sb[7 * kChunk + j], s.dv));
-  s.tpix = fmaxf(s.t_raw, near_plane);
-  return s;
+// sigma_cut (core/compositing.py): ln(255 opac) + 1e-4, +inf from 50 on.
+__device__ __forceinline__ float sigma_cut(float opac) {
+  const float cut = __fadd_rn(logf(__fmul_rn(opac, 255.f)), 1e-4f);
+  return cut < 50.f ? cut : __int_as_float(0x7f800000);
 }
 
-// w = alpha * (exp(lc) * (1 / (1 - alpha))): one expression for both phases,
-// so phase 2's w equals phase 1's maximum bit for bit.
+// The row of the packed matrix at staged position pos (see the layout
+// above): -1 for the cut, -2 for padding.
+__device__ __forceinline__ int source_row(int pos, int rows) {
+  if (pos < 5) return pos;   // u v a b c
+  if (pos == 5) return -1;   // cut
+  if (pos == 6) return 8;    // opacity
+  if (pos < 10) return pos - 2;  // depth, plane_u, plane_v
+  return pos - 1 < rows ? pos - 1 : -2;  // normal, colours
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const float* src, float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(src + i);
+    r[i] = q.x;
+    r[i + 1] = q.y;
+    r[i + 2] = q.z;
+    r[i + 3] = q.w;
+  }
+}
+
+// One stage of the butterfly below: a lane keeps the half of its first 2H
+// values selected by bit H of its id, sends its xor-partner the other half
+// and adds what the partner sends back.
+template <int H, int N>
+__device__ __forceinline__ void butterfly_stage(float (&x)[N], int lane) {
+  const bool upper = (lane & H) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = upper ? x[k] : x[k + H];
+    const float keep = upper ? x[k + H] : x[k];
+    x[k] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// x[N] per lane (N = 16 or 32) -> the warp's sum of x[lane % N].
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&x)[N], int lane) {
+  if constexpr (N == 32) butterfly_stage<16>(x, lane);
+  butterfly_stage<8>(x, lane);
+  butterfly_stage<4>(x, lane);
+  butterfly_stage<2>(x, lane);
+  butterfly_stage<1>(x, lane);
+  if constexpr (N == 16) return x[0] + __shfl_xor_sync(0xffffffffu, x[0], 16);
+  return x[0];
+}
+
+// Half-extents (eu, ev) of the box of pixel offsets at which a pair can be
+// live: the box around the ellipse 0.5 d^T M d <= 1.02 cut + 0.01,
+// M = [[a, b], [b, c]], widened by 0.01, in double
+// (core/compositing.py::sigma_cut_extent).  A live pair has float sigma
+// <= cut; float sigma errs from the exact form by under 1e-6 (a du^2 +
+// c dv^2) / 2, at most 1% of the exact form where M's eigenvalues differ
+// by under 1e4 times, so the box holds every live pair.  +inf where that
+// bound is not known (M not so conditioned, a non-finite value, an
+// infinite cut); -inf where the cut is negative (no pair is live).
+__device__ __forceinline__ void cut_extent(float a, float b, float c,
+                                           float cut, double& eu,
+                                           double& ev) {
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  if (cut < 0.f) {
+    eu = ev = -inf;
+    return;
+  }
+  eu = ev = inf;
+  if (!(cut < 50.f)) return;
+  const double da = a, db = b, dc = c;
+  const double det = da * dc - db * db;
+  const double tr = da + dc;
+  const double lmin = 0.5 * (tr - sqrt((da - dc) * (da - dc) + 4.0 * db * db));
+  if (!(da > 0.0 && dc > 0.0 && det > 0.0 && lmin * 1e4 >= tr)) return;
+  const double k = 2.0 * (1.02 * (double)cut + 0.01);
+  eu = sqrt(k * dc / det) + 0.01;
+  ev = sqrt(k * da / det) + 0.01;
+}
+
+// Bit w set iff the box of a splat at (mu, mv) reaches a pixel centre of
+// warp w's bw x bh block; warps tile the 16x16 tile two blocks a row.
+__device__ __forceinline__ unsigned warp_mask(float4 q0, float4 q1,
+                                              float tu0, float tv0, int bw,
+                                              int bh, int warps) {
+  double eu, ev;
+  cut_extent(q0.z, q0.w, q1.x, q1.y, eu, ev);
+  unsigned m = 0u;
+  for (int w = 0; w < warps; ++w) {
+    const double u0 = tu0 + bw * (w % 2) + 0.5, v0 = tv0 + bh * (w / 2) + 0.5;
+    if (q0.x - eu <= u0 + (bw - 1) && q0.x + eu >= u0 &&
+        q0.y - ev <= v0 + (bh - 1) && q0.y + ev >= v0)
+      m |= 1u << w;
+  }
+  return m;
+}
+
+// The first `quads` float4s of a chunk's staged rows, with the cut: two
+// threads per slot, each writing whole float4s (a scalar store per value
+// would conflict 16 ways in shared memory); the 128 threads on one float4
+// read 128 consecutive values of each of its rows.
+template <int C>
+__device__ __forceinline__ void stage_chunk(float* sb, unsigned* swm,
+                                            const float* src, long long m_al,
+                                            int quads, int p, float tu0,
+                                            float tv0) {
+  constexpr int kRow = Layout<C>::kRow;
+  constexpr int R = Layout<C>::R;
+  const int j = p % kChunk;
+  for (int q = p / kChunk; q < quads; q += kPixels / kChunk) {
+    float x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = source_row(4 * q + k, R);
+      x[k] = r >= 0 ? src[(long long)r * m_al + j] : 0.f;
+    }
+    if (q == 1) x[1] = sigma_cut(x[2]);
+    *reinterpret_cast<float4*>(sb + j * kRow + 4 * q) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  }
+  __syncthreads();
+  // Which warps' 8x4 blocks each slot can reach.
+  if (p < kChunk)
+    swm[p] = warp_mask(*reinterpret_cast<const float4*>(sb + p * kRow),
+                       *reinterpret_cast<const float4*>(sb + p * kRow + 4),
+                       tu0, tv0, 8, 4, kWarps);
+}
+
+// The pair's offsets and quadratic form, in PyTorch's order of operations.
+__device__ __forceinline__ float pair_sigma(float4 q0, float4 q1, float u,
+                                            float v, float& du, float& dv) {
+  du = __fsub_rn(u, q0.x);
+  dv = __fsub_rn(v, q0.y);
+  const float q = __fadd_rn(__fmul_rn(__fmul_rn(q0.z, du), du),
+                            __fmul_rn(__fmul_rn(q1.x, dv), dv));
+  return __fadd_rn(__fmul_rn(0.5f, q), __fmul_rn(__fmul_rn(q0.w, du), dv));
+}
+
+// The pair's alpha if it is live, else 0: the cull, then the exact test.
+__device__ __forceinline__ float live_alpha(float sigma, float4 q1) {
+  const float alpha_cutoff = (float)(1.0 / 255.0);
+  const float alpha_max = (float)0.999;
+  if (!(sigma >= 0.f) || sigma > q1.y) return 0.f;
+  const float a = fminf(__fmul_rn(q1.z, expf(-fminf(sigma, 50.f))), alpha_max);
+  return a >= alpha_cutoff ? a : 0.f;
+}
+
+// w = alpha * (exp(lc) * (1 / (1 - alpha))): the forward's expression.
 __device__ __forceinline__ float weight(float alpha, float lc, float* t_in,
                                         float* inv1m) {
   *inv1m = __fdiv_rn(1.f, __fsub_rn(1.f, alpha));
@@ -111,27 +262,7 @@ __device__ __forceinline__ float weight(float alpha, float lc, float* t_in,
 }
 
 template <int C>
-__device__ __forceinline__ float grad_w(const float* sb, int j,
-                                        const float* gc, const float* gn,
-                                        float g_depth, float tpix) {
-  float sc = 0.f, sn = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) sc = fmaf(gc[c], sb[(kBase + c) * kChunk + j], sc);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) sn = fmaf(gn[c], sb[(9 + c) * kChunk + j], sn);
-  return fmaf(g_depth, tpix, sc + sn);
-}
-
-__device__ __forceinline__ void load_chunk(float* sb, const float* src,
-                                           long long m_al, int rows, int p) {
-  for (int i = p; i < rows * kChunk; i += kPixels) {
-    const int r = i / kChunk;
-    sb[i] = src[(long long)r * m_al + (i - r * kChunk)];
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kPixels)
+__global__ void __launch_bounds__(kPixels, 4)
 composite_tiles_bwd_kernel(const float* __restrict__ isect,
                            const int* __restrict__ starts,
                            const int* __restrict__ lens,
@@ -140,21 +271,32 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
                            long long m_al, int ntx, float near_plane,
                            int max_chunks, float* __restrict__ scratch,
                            float* __restrict__ d_isect) {
-  constexpr int R = kBase + C;  // rows read, and the per-slot pixel sums
-  extern __shared__ float smem[];
-  float* sb = smem;                  // [R, kChunk] chunk rows
-  float* sc = sb + R * kChunk;       // [kSub, kPixels] log T after each slot
-  float* sp = sc + kSub * kPixels;   // [kWarps, kSub, R] warp partials
+  using L = Layout<C>;
+  constexpr int R = L::R;
+  constexpr int kPad = L::kPad;
+  constexpr int kRow = L::kRow;
+  extern __shared__ __align__(16) float smem[];
+  float* sb = smem;                  // [kChunk, kRow] staged chunk rows
+  float* sc = sb + kChunk * kRow;    // [kBatch, kPixels] lc, then partials
+  // [kChunk] bit w: the slot may be live in warp w
+  unsigned* swm = reinterpret_cast<unsigned*>(sc + kBatch * kPixels);
+  float* ss = reinterpret_cast<float*>(swm + kChunk);  // [R, kSumStride]
 
   const float alpha_max = (float)0.999;
   const float log_half = (float)-0.6931471805599453;
 
   const int tile = blockIdx.x;
-  const int p = threadIdx.x;
+  const int p = threadIdx.x;  // the table's column
   const int lane = p & 31;
   const int warp = p >> 5;
-  const float u = (float)((tile % ntx) * kTile + p % kTile) + 0.5f;
-  const float v = (float)((tile / ntx) * kTile + p / kTile) + 0.5f;
+  const int px = (warp % 2) * 8 + lane % 8;
+  const int py = (warp / 2) * 4 + lane / 8;
+  const int pix = py * kTile + px;
+  const float u = (float)((tile % ntx) * kTile + px) + 0.5f;
+  const float v = (float)((tile / ntx) * kTile + py) + 0.5f;
+  const float tu0 = (float)((tile % ntx) * kTile);
+  const float tv0 = (float)((tile / ntx) * kTile);
+  const unsigned my_warp = 1u << warp;
   const long long start = starts[tile];
   const int seg_len = lens[tile];
   // The forward's chunk count, clamped to the segment's walk as the
@@ -165,163 +307,176 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
                      min((seg_len + kChunk - 1) / kChunk, max_chunks)),
       room < 0 ? 0LL : room);
 
-  const float* g = g_packed + ((size_t)tile * kPixels + p) * (C + 6);
+  // Per (chunk, batch) and pixel: entry 0 the log T carried into the
+  // chunk, entry b > 0 the in-chunk carry in front of batch b.
+  float* bank = scratch + (size_t)tile * max_chunks * kNBatch * kPixels + p;
+
+  // ---- Phase 1: replay the forward; bank the carries, find the median.
+  float log_t = 0.f, wmax = 0.f;
+  int sel = -1;  // the median slot, as a column of the tile's segment
+  bool crossed = false;
+  for (int ci = 0; ci < nc; ++ci) {
+    __syncthreads();  // the previous chunk is consumed
+    stage_chunk<C>(sb, swm, isect + start + (long long)ci * kChunk, m_al, 2,
+                   p, tu0, tv0);
+    __syncthreads();
+    const int n_valid = min(kChunk, seg_len - ci * kChunk);
+    float* bk = bank + (size_t)ci * kNBatch * kPixels;
+    bk[0] = log_t;
+    float cum = 0.f;
+    for (int j = 0; j < n_valid; ++j) {
+      if (j % kBatch == 0 && j > 0) bk[(j / kBatch) * kPixels] = cum;
+      if (!(swm[j] & my_warp)) continue;  // dead in the whole warp
+      const float* row = sb + j * kRow;
+      const float4 q0 = *reinterpret_cast<const float4*>(row);
+      const float4 q1 = *reinterpret_cast<const float4*>(row + 4);
+      float du, dv;
+      const float alpha = live_alpha(pair_sigma(q0, q1, u, v, du, dv), q1);
+      if (alpha == 0.f) continue;
+      cum = __fadd_rn(cum, log1pf(-alpha));
+      if (crossed) continue;
+      const float lc = __fadd_rn(log_t, cum);
+      if (lc <= log_half) {
+        crossed = true;
+        sel = ci * kChunk + j;
+        continue;
+      }
+      float t_in, inv1m;
+      const float w = weight(alpha, lc, &t_in, &inv1m);
+      if (w > wmax) {
+        wmax = w;
+        sel = ci * kChunk + j;
+      }
+    }
+    log_t = __fadd_rn(log_t, cum);
+  }
+
+  const float* g = g_packed + ((size_t)tile * kPixels + pix) * (C + 6);
   float gc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) gc[c] = g[c];
   const float gn[3] = {g[C], g[C + 1], g[C + 2]};
-  const float g_alpha = g[C + 3];
   const float g_depth = g[C + 4];
   const float g_med = g[C + 5];
-  float* logt_in = scratch + (size_t)tile * 2 * max_chunks * kPixels;
-  float* gw_sum = logt_in + (size_t)max_chunks * kPixels;
+  const float ga_tf = g[C + 3] * expf(log_t);  // g_alpha t_final
 
-  // ---- Phase 1: replay the forward.
-  float log_t = 0.f, wmax = 0.f;
-  bool crossed = false;
-  for (int ci = 0; ci < nc; ++ci) {
-    __syncthreads();  // the previous chunk is consumed
-    load_chunk(sb, isect + start + (long long)ci * kChunk, m_al, R, p);
+  // ---- Phase 2: the chunks and their batches back to front.
+  float suffix = 0.f;
+  for (int ci = nc - 1; ci >= 0; --ci) {
+    __syncthreads();
+    stage_chunk<C>(sb, swm, isect + start + (long long)ci * kChunk, m_al,
+                   kRow / 4, p, tu0, tv0);
     __syncthreads();
     const int n_valid = min(kChunk, seg_len - ci * kChunk);
-    float cum = 0.f, gws = 0.f;
-    for (int j = 0; j < n_valid; ++j) {
-      const Slot s = slot_chain(sb, j, u, v, near_plane);
-      if (!s.keep) continue;
-      cum = __fadd_rn(cum, log1pf(-s.alpha));
-      const float lc = __fadd_rn(log_t, cum);
-      crossed |= lc <= log_half;
-      float t_in, inv1m;
-      const float w = weight(s.alpha, lc, &t_in, &inv1m);
-      gws = fmaf(grad_w<C>(sb, j, gc, gn, g_depth, s.tpix), w, gws);
-      wmax = fmaxf(wmax, w);
-    }
-    logt_in[(size_t)ci * kPixels + p] = log_t;
-    gw_sum[(size_t)ci * kPixels + p] = gws;
-    log_t = __fadd_rn(log_t, cum);
-  }
-  const float t_final = expf(log_t);
-  const float ga_tf = g_alpha * t_final;
-
-  // ---- Phase 2: per-slot gradients, chunk by chunk.
-  bool seen_med = false, seen_fb = false;
-  for (int ci = 0; ci < nc; ++ci) {
-    __syncthreads();
-    load_chunk(sb, isect + start + (long long)ci * kChunk, m_al, R, p);
-    __syncthreads();
-    const int n_valid = min(kChunk, seg_len - ci * kChunk);
-    const float lt_in = logt_in[(size_t)ci * kPixels + p];
-    float s_after = 0.f;
-    for (int c = ci + 1; c < nc; ++c) s_after += gw_sum[(size_t)c * kPixels + p];
-
-    // Front to back: the carry at each batch boundary and the chunk's
-    // median slot (the first fired live slot, else the first slot of
-    // maximum weight).
-    float cumb[kNSub];
-    int sel = -1;
-    float cum = 0.f;
-#pragma unroll
-    for (int b = 0; b < kNSub; ++b) {
-      cumb[b] = cum;
-      const int j1 = min((b + 1) * kSub, n_valid);
-      for (int j = b * kSub; j < j1; ++j) {
-        const Slot s = slot_chain(sb, j, u, v, near_plane);
-        if (!s.keep) continue;
-        cum = __fadd_rn(cum, log1pf(-s.alpha));
-        const float lc = __fadd_rn(lt_in, cum);
-        if (crossed) {
-          if (!seen_med && lc <= log_half) {
-            seen_med = true;
-            sel = j;
-          }
-        } else if (!seen_fb && wmax > 0.f) {
-          float t_in, inv1m;
-          if (weight(s.alpha, lc, &t_in, &inv1m) == wmax) {
-            seen_fb = true;
-            sel = j;
-          }
-        }
-      }
-    }
-
-    // Back to front, batch by batch.
-    float within = 0.f;
+    const float* bk = bank + (size_t)ci * kNBatch * kPixels;
+    const float lt_in = bk[0];
     float* dcol = d_isect + start + (long long)ci * kChunk;
-#pragma unroll
-    for (int b = kNSub - 1; b >= 0; --b) {
-      const int j0 = b * kSub;
-      const int nb = min(kSub, n_valid - j0);
-      if (nb <= 0) continue;
-      // This batch's log-transmittances, rebuilt with the forward's
-      // rounding; each thread reads back only its own column.
-      float c2 = cumb[b];
+    for (int b = (n_valid - 1) / kBatch; b >= 0; --b) {
+      const int j0 = b * kBatch;
+      const int nb = min(kBatch, n_valid - j0);
+      // The batch's lc, rebuilt with the forward's rounding; kDead where
+      // the pair is dead.
+      float cum = b > 0 ? bk[b * kPixels] : 0.f;
       for (int jj = 0; jj < nb; ++jj) {
-        const Slot s = slot_chain(sb, j0 + jj, u, v, near_plane);
-        if (s.keep) c2 = __fadd_rn(c2, log1pf(-s.alpha));
-        sc[jj * kPixels + p] = __fadd_rn(lt_in, c2);
+        if (!(swm[j0 + jj] & my_warp)) continue;  // the walk skips it
+        const float* row = sb + (j0 + jj) * kRow;
+        const float4 q0 = *reinterpret_cast<const float4*>(row);
+        const float4 q1 = *reinterpret_cast<const float4*>(row + 4);
+        float du, dv;
+        const float alpha = live_alpha(pair_sigma(q0, q1, u, v, du, dv), q1);
+        float lc = kDead;
+        if (alpha > 0.f) {
+          cum = __fadd_rn(cum, log1pf(-alpha));
+          lc = __fadd_rn(lt_in, cum);
+        }
+        sc[jj * kPixels + p] = lc;
       }
+
+      // Back to front through the batch.  A dead pair adds nothing: w = 0,
+      // d_alpha = 0, and the median slot is one of the pixel's live slots.
       for (int jj = nb - 1; jj >= 0; --jj) {
         const int j = j0 + jj;
-        const Slot s = slot_chain(sb, j, u, v, near_plane);
-        float* part = sp + (warp * kSub + jj) * R;
-        if (!__any_sync(0xffffffffu, s.keep)) {
-          if (lane < R) part[lane] = 0.f;
+        if (!(swm[j] & my_warp)) {  // no pixel of the warp keeps the slot
+          sc[jj * kPixels + p] = 0.f;
           continue;
         }
-        float c[R];
+        const float lc = sc[jj * kPixels + p];
+        const bool keep = lc <= 0.f;
+        float sum = 0.f;
+        if (__any_sync(0xffffffffu, keep)) {
+          float x[kPad];
 #pragma unroll
-        for (int i = 0; i < R; ++i) c[i] = 0.f;
-        if (s.keep) {
-          float t_in, inv1m;
-          const float w = weight(s.alpha, sc[jj * kPixels + p], &t_in, &inv1m);
-          const float gw = grad_w<C>(sb, j, gc, gn, g_depth, s.tpix);
-          const float suffix = within + s_after;
-          const float d_alpha = gw * t_in - suffix * inv1m + ga_tf * inv1m;
-          within = fmaf(gw, w, within);
-          float g_t = 0.f;
-          if (s.t_raw > near_plane) g_t = g_depth * w + (j == sel ? g_med : 0.f);
-          const float d_raw = s.raw < alpha_max ? d_alpha : 0.f;
-          const float d_sigma = -s.raw * d_raw;
-          const float* r = sb + j;
-          c[0] = d_sigma * (r[2 * kChunk] * s.du + r[3 * kChunk] * s.dv) +
-                 g_t * r[6 * kChunk];
-          c[1] = d_sigma * (r[4 * kChunk] * s.dv + r[3 * kChunk] * s.du) +
-                 g_t * r[7 * kChunk];
-          c[2] = 0.5f * s.du * s.du * d_sigma;
-          c[3] = s.du * s.dv * d_sigma;
-          c[4] = 0.5f * s.dv * s.dv * d_sigma;
-          c[5] = g_t;
-          c[6] = g_t * s.du;
-          c[7] = g_t * s.dv;
-          c[8] = d_raw * s.e;
+          for (int i = 0; i < kPad; ++i) x[i] = 0.f;
+          if (keep) {
+            float r[kRow];
+            load_row(sb + j * kRow, r);
+            const float4 q0 = make_float4(r[0], r[1], r[2], r[3]);
+            const float4 q1 = make_float4(r[4], r[5], r[6], r[7]);
+            float du, dv;
+            const float sigma = pair_sigma(q0, q1, u, v, du, dv);
+            const float e = expf(-fminf(sigma, 50.f));  // sigma >= 0 here
+            const float raw = __fmul_rn(r[6], e);
+            const float alpha = fminf(raw, alpha_max);
+            const float t_raw = __fadd_rn(
+                __fadd_rn(r[7], __fmul_rn(r[8], du)), __fmul_rn(r[9], dv));
+            float t_in, inv1m;
+            const float w = weight(alpha, lc, &t_in, &inv1m);
+            float sgc = 0.f, sgn = 0.f;
 #pragma unroll
-          for (int i = 0; i < 3; ++i) c[9 + i] = gn[i] * w;
+            for (int c = 0; c < C; ++c) sgc = fmaf(gc[c], r[13 + c], sgc);
 #pragma unroll
-          for (int i = 0; i < C; ++i) c[kBase + i] = gc[i] * w;
+            for (int c = 0; c < 3; ++c) sgn = fmaf(gn[c], r[10 + c], sgn);
+            const float gw =
+                fmaf(g_depth, fmaxf(t_raw, near_plane), sgc + sgn);
+            const float d_alpha = gw * t_in - suffix * inv1m + ga_tf * inv1m;
+            suffix = fmaf(gw, w, suffix);
+            float g_t = 0.f;
+            if (t_raw > near_plane) g_t = g_depth * w + (j + ci * kChunk == sel
+                                                             ? g_med
+                                                             : 0.f);
+            const float d_raw = raw < alpha_max ? d_alpha : 0.f;
+            const float d_sigma = -raw * d_raw;
+            x[0] = d_sigma * (r[2] * du + r[3] * dv) + g_t * r[8];
+            x[1] = d_sigma * (r[4] * dv + r[3] * du) + g_t * r[9];
+            x[2] = 0.5f * du * du * d_sigma;
+            x[3] = du * dv * d_sigma;
+            x[4] = 0.5f * dv * dv * d_sigma;
+            x[5] = g_t;
+            x[6] = g_t * du;
+            x[7] = g_t * dv;
+            x[8] = d_raw * e;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) x[9 + i] = gn[i] * w;
+#pragma unroll
+            for (int i = 0; i < C; ++i) x[kBase + i] = gc[i] * w;
+          }
+          sum = reduce_scatter<kPad>(x, lane);
         }
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            c[i] += __shfl_down_sync(0xffffffffu, c[i], off);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < R; ++i) part[i] = c[i];
-        }
+        // Lane l holds term l (l < R) of the warp's sum; it goes over the
+        // lane's own table entry for the slot, read above.
+        sc[jj * kPixels + p] = lane < R ? sum : 0.f;
       }
       __syncthreads();
-      // The 8 warps' partials in a fixed order; rows 0, 1 (the means) are
-      // negated sums.
+      // The 8 warps' partials in a fixed order, consecutive threads on
+      // consecutive terms of a slot (on consecutive slots they would read
+      // one bank 32 times); rows 0, 1 (the means) are negated sums.
+      for (int i = p; i < R * nb; i += kPixels) {
+        const int jj = i / R;
+        const int r = i - jj * R;
+        const float* pj = sc + jj * kPixels + r;
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += pj[w * 32];
+        ss[r * kSumStride + jj] = r < 2 ? -s : s;
+      }
+      __syncthreads();
+      // The batch's gradient columns, row by row.
       for (int i = p; i < R * nb; i += kPixels) {
         const int r = i / nb;
         const int jj = i - r * nb;
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += sp[(w * kSub + jj) * R + r];
-        dcol[(long long)r * m_al + j0 + jj] = r < 2 ? -s : s;
+        dcol[(long long)r * m_al + j0 + jj] = ss[r * kSumStride + jj];
       }
-      __syncthreads();  // the partials are consumed
+      __syncthreads();  // the partials and sums are consumed
     }
   }
 }
@@ -331,7 +486,7 @@ int launch(const float* isect, const int* starts, const int* lens,
            const int* nchunks, const float* g_packed, int t, long long m_al,
            int ntx, float near_plane, int max_chunks, float* scratch,
            float* d_isect, cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(float) * smem_floats<C>();
+  constexpr size_t bytes = sizeof(float) * Layout<C>::kSmemFloats;
   cudaError_t err = cudaFuncSetAttribute(
       composite_tiles_bwd_kernel<C>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -343,6 +498,10 @@ int launch(const float* isect, const int* starts, const int* lens,
 }
 
 }  // namespace
+
+// Entries of the scratch per (tile, chunk, pixel): the wrapper allocates
+// [T, max_chunks, composite_tiles_bwd_banked(), 256] float32.
+extern "C" int composite_tiles_bwd_banked() { return kNBatch; }
 
 // Returns cudaGetLastError() after the launch; -1 for an unsupported C.
 extern "C" int composite_tiles_bwd(const void* isect, const void* starts,

@@ -70,10 +70,12 @@ def _fwd_fn():
 
 @functools.cache
 def _bwd_fn():
-    fn = build.load("composite_bwd").composite_tiles_bwd
+    lib = build.load("composite_bwd")
+    fn = lib.composite_tiles_bwd
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _P, _P, _P]
     fn.restype = _I
-    return fn
+    # Entries the kernel banks per (tile, chunk, pixel) in its scratch.
+    return fn, lib.composite_tiles_bwd_banked()
 
 
 def log_stop(stop_threshold: float) -> float:
@@ -418,11 +420,13 @@ def composite_tiles_bwd_call(isect: torch.Tensor, starts: torch.Tensor,
     d_isect = torch.zeros_like(isect)
     if t == 0:
         return d_isect
-    # Per (tile, chunk, pixel): the chunk's entry log T and sum of g_w * w.
-    scratch = torch.empty((t, 2, max_chunks, p), dtype=torch.float32,
+    # Per (tile, chunk, pixel): the log T carried into the chunk and the
+    # in-chunk carry at each of its batch boundaries.
+    fn, banked = _bwd_fn()
+    scratch = torch.empty((t, max_chunks, banked, p), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
-        rc = _bwd_fn()(isect.data_ptr(), starts.data_ptr(), lens.data_ptr(),
+        rc = fn(isect.data_ptr(), starts.data_ptr(), lens.data_ptr(),
                        nchunks.data_ptr(), g_packed.data_ptr(), t,
                        isect.shape[1], num_tiles_x, n_color, near_plane,
                        max_chunks, scratch.data_ptr(), d_isect.data_ptr(),
