@@ -2,9 +2,11 @@
 
 Builds the port's six CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the per-tile
-pair at C = 3 and 16 colour channels and stop_threshold 0 and 1e-4; the
-four compositing kernels also on the seeded edge cases of
-``data/compositing_cases.py``; the sorted segment sum also on a skewed id
+pair, which reads each slot's row through the aligned ids, at C = 3 and 16
+colour channels and stop_threshold 0 and 1e-4 with a nonzero per-slot sink;
+the four compositing kernels also on the seeded edge cases of
+``data/compositing_cases.py``; the decode also on the skewed plans of
+``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 ``backend="pallas"`` render against the ``"xla"`` render.  Then it drives the port's four main paths:
 
@@ -52,7 +54,8 @@ import torch
 from collab_splats_tpu_torch.core import compositing
 from collab_splats_tpu_torch.core.options import RenderOptions
 from collab_splats_tpu_torch.core.projection import project_gaussians
-from collab_splats_tpu_torch.data import compositing_cases, synthetic
+from collab_splats_tpu_torch.data import (compositing_cases, decode_plans,
+                                          synthetic)
 from collab_splats_tpu_torch.models import gaussians, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
@@ -204,11 +207,12 @@ def decode_args(plan):
             plan.ntx * plan.nty)
 
 
-def check_decode(plan) -> float:
+def check_decode(plan, args=None) -> float:
     """The kernel's whole (key, gid) stream against the plain version's:
     bit-exact.  Returns the max abs difference (0)."""
-    key, gid = binning_kernel.decode_bin_keys(*decode_args(plan))
-    ref_key, ref_gid = binning_kernel.decode_keys_plain(*decode_args(plan))
+    args = args or decode_args(plan)
+    key, gid = binning_kernel.decode_bin_keys(*args)
+    ref_key, ref_gid = binning_kernel.decode_keys_plain(*args)
     err = max(int((key - ref_key).abs().max()),
               int((gid - ref_gid).abs().max()))
     if err:
@@ -216,6 +220,19 @@ def check_decode(plan) -> float:
         raise AssertionError(f"decode: {bad} slots differ from the plain "
                              "version")
     return float(err)
+
+
+def check_decode_plans(dev) -> float:
+    """The decode on the skewed plans of ``data/decode_plans.py``, each
+    with the cull and without: bit-exact."""
+    for name, p in decode_plans.skewed_plans(dev).items():
+        for d in (p.inputs, p.inputs._replace(cull=None)):
+            check_decode(None, (d, p.m_cap, p.ntx, p.ts, p.rank_bits,
+                                p.num_tiles))
+    say("parity decode on the skewed plans (runs of zero-count gaussians, "
+        "one gaussian owning 1,500 slots, live totals below and equal to "
+        f"the capacity {decode_plans.M_CAP}; cull on and off): bit-exact")
+    return 0.0
 
 
 def check_composite(g, mask, ntx):
@@ -628,36 +645,71 @@ def segsum_bound(m, d, n):
 
 # ---------------------------------------------- the per-tile compositor
 class TilesInputs:
-    """Kernel 5's and 6's inputs for one camera."""
+    """Kernel 5's and 6's inputs for one camera: the padded per-gaussian
+    rows, the aligned ids, the segments, and an optional per-slot sink
+    [2, M]."""
 
-    def __init__(self, isect, starts, lens, ntx, n_color, max_chunks):
-        self.isect, self.starts, self.lens = isect, starts, lens
+    def __init__(self, per_gauss, ids, starts, lens, ntx, n_color,
+                 max_chunks, sink=None):
+        self.per_gauss, self.ids, self.sink = per_gauss, ids, sink
+        self.starts, self.lens = starts, lens
         self.ntx, self.n_color, self.max_chunks = ntx, n_color, max_chunks
 
     @classmethod
     def of_render(cls, meta, opac, colors, k_cap):
         """The inputs as the ``backend="pallas"`` render builds them
-        (``ops/rasterize.py::render_tiled_pallas``)."""
-        gid, starts, lens, valid = tiles.align_segments(
+        (``ops/rasterize.py::render_tiled_pallas``), without a sink."""
+        gid, starts, lens, _ = tiles.align_segments(
             meta.bins.starts, meta.bins.sorted_gid, composite.CHUNK)
         with torch.no_grad():
-            isect = rasterize.pack_intersections(
-                meta.proj, opac, colors, meta.proj.normal, gid, valid)
-        return cls(isect, starts, lens, meta.bins.num_tiles_x,
-                   colors.shape[1], -(-k_cap // composite.CHUNK))
+            per_gauss = rasterize.pad_per_gauss(rasterize.pack_per_gauss(
+                meta.proj, opac, meta.proj.normal, colors))
+        return cls(per_gauss, gid, starts, lens,
+                   meta.bins.num_tiles_x, colors.shape[1],
+                   -(-k_cap // composite.CHUNK))
+
+    @classmethod
+    def of_matrix(cls, isect, starts, lens, ntx, n_color, max_chunks, seed):
+        """The inputs whose slot s reads column s of a packed matrix
+        [Dp, M]: its columns as the rows of a per-gaussian matrix in a
+        seeded order, read through distinct ids."""
+        d, m = isect.shape
+        gen = torch.Generator(device=isect.device).manual_seed(seed)
+        ids = torch.randperm(m, generator=gen, device=isect.device)
+        per_gauss = torch.empty((m, d), device=isect.device)
+        per_gauss[ids] = isect.T
+        return cls(per_gauss, ids.to(torch.int32), starts, lens, ntx,
+                   n_color, max_chunks)
+
+    def with_sink(self, seed):
+        """These inputs with a seeded nonzero sink (normal, 0.05 pixel)."""
+        gen = torch.Generator(device=self.ids.device).manual_seed(seed)
+        sink = 0.05 * torch.randn((2, self.ids.shape[0]), generator=gen,
+                                  device=self.ids.device)
+        return TilesInputs(self.per_gauss, self.ids, self.starts, self.lens,
+                           self.ntx, self.n_color, self.max_chunks, sink)
+
+    def rows(self, slots):
+        """The rows the compositor reads at ``slots`` (any shape): the
+        per-gaussian rows through the ids, the sink on (u, v)."""
+        r = self.per_gauss[self.ids[slots].long()]
+        if self.sink is not None:
+            r = torch.cat([r[..., :2] + self.sink.T[slots], r[..., 2:]], -1)
+        return r
 
     def fwd_args(self, stop):
-        return (self.isect, self.starts, self.lens, self.ntx, TS,
-                self.n_color, NEAR, stop, self.max_chunks)
+        return (self.per_gauss, self.ids, self.starts, self.lens, self.ntx,
+                TS, self.n_color, NEAR, stop, self.max_chunks, self.sink)
 
     def bwd_args(self, nchunks, seed):
         """Backward arguments for the forward's ``nchunks``, with seeded
         normal cotangents of the packed maps."""
-        gen = torch.Generator(device=self.isect.device).manual_seed(seed)
+        gen = torch.Generator(device=self.ids.device).manual_seed(seed)
         g = torch.randn((self.lens.shape[0], TS * TS, self.n_color + 6),
-                        generator=gen, device=self.isect.device)
-        return (self.isect, self.starts, self.lens, self.ntx, nchunks, g, TS,
-                self.n_color, NEAR, self.max_chunks)
+                        generator=gen, device=self.ids.device)
+        return (self.per_gauss, self.ids, self.starts, self.lens, self.ntx,
+                nchunks, g, TS, self.n_color, NEAR, self.max_chunks,
+                self.sink)
 
 
 def tiles_inputs(params, alive, cam, cfg):
@@ -686,43 +738,51 @@ def chunks_walked(ti):
 
 def check_tiles_fwd(ti, stop):
     """Kernel 5 against its plain version: maps within rtol/atol 1e-5,
-    nchunks equal.  Returns (max abs err, nchunks, tiles that exited
-    early)."""
+    nchunks equal, and alpha and the median bit-identical (the carry, the
+    median slot and the maximum-weight decisions, and the slot's depth, are
+    formed in the same rounding in both).  Returns (max abs err, nchunks,
+    tiles that exited early)."""
     out, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
-    ref, ref_n = composite.composite_tiles_fwd_plain(*ti.fwd_args(stop))
+    ref, ref_n = composite.composite_tiles_fwd_gather_plain(
+        *ti.fwd_args(stop))
+    what = f"composite_tiles C={ti.n_color} stop={stop}"
     if not torch.equal(nch, ref_n):
-        raise AssertionError(f"composite_tiles C={ti.n_color} stop={stop}: "
-                             f"nchunks differ at "
+        raise AssertionError(f"{what}: nchunks differ at "
                              f"{int((nch != ref_n).sum())} tiles")
-    torch.testing.assert_close(
-        out, ref, msg=f"composite_tiles C={ti.n_color} stop={stop}", **TOL)
+    torch.testing.assert_close(out, ref, msg=what, **TOL)
+    for name, k in (("alpha", 3), ("median", 5)):
+        c = ti.n_color + k
+        if not torch.equal(out[..., c], ref[..., c]):
+            raise AssertionError(
+                f"{what}: {name} differs at "
+                f"{int((out[..., c] != ref[..., c]).sum())} pixels")
     early = int((nch < chunks_walked(ti)).sum())
     return float((out - ref).abs().max()), nch, early
 
 
-# d_isect's row groups (ops/cuda/composite.py's row layout), each held to
-# the gradient tolerance scaled by its own max |ref|.
+# d_slot's column groups (ops/cuda/composite.py's row layout), each held
+# to the gradient tolerance scaled by its own max |ref|.
 ISECT_GROUPS = (("mean", 0, 2), ("conic", 2, 5), ("depth, plane", 5, 8),
                 ("opacity", 8, 9), ("normal", 9, 12), ("colour", 12, None))
 
 
 def check_tiles_bwd(args, what) -> float:
     """Kernel 6 against its plain version on the arguments ``args`` within
-    the gradient tolerance per row group, 0 in the padding rows, and the
-    same bits on a second launch.  Returns the max abs difference."""
+    the gradient tolerance per column group, 0 in the padding columns, and
+    the same bits on a second launch.  Returns the max abs difference."""
     got = composite.composite_tiles_bwd_call(*args)
     again = composite.composite_tiles_bwd_call(*args)
-    ref = composite.composite_tiles_bwd_plain(*args)
-    n_color = args[7]
-    rows = 12 + n_color
+    ref = composite.composite_tiles_bwd_gather_plain(*args)
+    n_color = args[8]
+    cols = 12 + n_color
     err = max(assert_grad_close(
-        got[a:b or rows], ref[a:b or rows],
-        f"composite_tiles_bwd {what} C={n_color} d_isect[{name}]")
+        got[:, a:b or cols], ref[:, a:b or cols],
+        f"composite_tiles_bwd {what} C={n_color} d_slot[:, {name}]")
         for name, a, b in ISECT_GROUPS)
     if not torch.equal(got, again):
         raise AssertionError("composite_tiles_bwd: two launches differ")
-    if bool(got[rows:].any()):
-        raise AssertionError("composite_tiles_bwd: nonzero padding rows")
+    if bool(got[:, cols:].any()):
+        raise AssertionError("composite_tiles_bwd: nonzero padding columns")
     return err
 
 
@@ -730,13 +790,13 @@ def tile_chunk_alphas(ti, nchunks):
     """Per group of tiles and chunk the forward ran: each (pixel, slot)
     pair's alpha [Tg, P, CHUNK], zero where it does not pass the cutoff,
     and which slots lie inside the segments [Tg, CHUNK]."""
-    lane = torch.arange(composite.CHUNK, device=ti.isect.device)
+    lane = torch.arange(composite.CHUNK, device=ti.ids.device)
     for ci in range(ti.max_chunks):
         t = torch.nonzero(nchunks > ci)[:, 0]
         for s in range(0, t.shape[0], 256):
             tt = t[s:s + 256]
             cols = ti.starts[tt].long()[:, None] + ci * composite.CHUNK + lane
-            b = ti.isect[:9][:, cols]                     # [9, Tg, CHUNK]
+            b = ti.rows(cols)[..., :9].permute(2, 0, 1)   # [9, Tg, CHUNK]
             inside = (ci * composite.CHUNK + lane)[None] < ti.lens[tt, None]
             up, vp = compositing.pixel_centers(tt, ti.ntx, TS)
             yield compositing.splat_alpha(
@@ -774,30 +834,47 @@ def tiles_live_warp_slots(ti, nchunks):
     return live, valid
 
 
+def walked_slots(ti, nchunks) -> int:
+    """Slots the compositor reads: those below each segment's length in
+    the chunks it ran."""
+    return int(torch.minimum(ti.lens, nchunks * composite.CHUNK).sum())
+
+
+def slot_read_bytes(ti, nchunks) -> int:
+    """Bytes of the rows the compositor reads: per walked slot its int32
+    id, its Dp-float row and, with a sink, its two sink values."""
+    per_slot = 4 + 4 * ti.per_gauss.shape[1] + (8 if ti.sink is not None
+                                                 else 0)
+    return per_slot * walked_slots(ti, nchunks)
+
+
 def composite_tiles_bound(ti, nchunks):
-    """Bytes: the 12 + C rows of the chunks the kernel ran read once,
-    starts and lens read, the packed maps and nchunks written once.
-    Operations, counted on this run's data: 23 float32 operations of alpha
-    and depth per (pixel, slot) pair inside a segment of those chunks, and
-    11 + 2(C + 3) more (transmittance, weight, value FMAs, median and
-    maximum weight) per pair whose alpha passes the cutoff."""
+    """Bytes: the rows of the slots the kernel walked read once (the id
+    and the gathered row of each), starts and lens read, the packed maps
+    and nchunks written once.  Operations, counted on this run's data: 23
+    float32 operations of alpha and depth per (pixel, slot) pair inside a
+    segment of those chunks, and 11 + 2(C + 3) more (transmittance, weight,
+    value FMAs, median and maximum weight) per pair whose alpha passes the
+    cutoff."""
     t, c = ti.lens.shape[0], ti.n_color
-    cols = composite.CHUNK * int(nchunks.sum())
-    nbytes = 4 * ((12 + c) * cols + 2 * t + 1 + t * TS * TS * (c + 6) + t)
+    nbytes = slot_read_bytes(ti, nchunks) + 4 * (
+        2 * t + 1 + t * TS * TS * (c + 6) + t)
     valid, live = tiles_pairs(ti, nchunks)
     return bound(nbytes, 23 * valid + (11 + 2 * (c + 3)) * live)
 
 
 def composite_tiles_bwd_bound(ti, nchunks):
-    """Bytes: the 12 + C rows of the chunks the forward ran read once and
-    their gradient written once, the cotangents, starts, lens and nchunks
-    read once.  Operations, counted on this run's data: the 23 of alpha and
-    depth per (pixel, slot) pair inside a segment of those chunks, and
-    37 + 4(C + 3) more per pair whose alpha passes the cutoff (as for
-    kernel 3, with V = C + 3 values)."""
+    """Bytes: the rows of the slots the forward walked read once (the id
+    and the gathered row of each) and their Dp-float gradient rows written
+    once, the cotangents, starts, lens and nchunks read once.  Operations,
+    counted on this run's data: the 23 of alpha and depth per (pixel, slot)
+    pair inside a segment of those chunks, and 37 + 4(C + 3) more per pair
+    whose alpha passes the cutoff (as for kernel 3, with V = C + 3
+    values)."""
     t, c = ti.lens.shape[0], ti.n_color
-    cols = composite.CHUNK * int(nchunks.sum())
-    nbytes = 4 * (2 * (12 + c) * cols + t * TS * TS * (c + 6) + 3 * t + 1)
+    nbytes = (slot_read_bytes(ti, nchunks)
+              + 4 * ti.per_gauss.shape[1] * walked_slots(ti, nchunks)
+              + 4 * (t * TS * TS * (c + 6) + 3 * t + 1))
     valid, live = tiles_pairs(ti, nchunks)
     return bound(nbytes, 23 * valid + (37 + 4 * (c + 3)) * live)
 
@@ -811,7 +888,7 @@ def tiles_parity(name, scene):
     ti3, ti16 = tiles_inputs(params, alive, cams[0], cfg)
     errs = {"composite_tiles": 0.0, "composite_tiles_bwd": 0.0}
     early = {}
-    for ti in (ti3, ti16):
+    for ti in (ti3.with_sink(4), ti16.with_sink(5)):
         for stop in (0.0, 1e-4):
             err, nch, n_early = check_tiles_fwd(ti, stop)
             errs["composite_tiles"] = max(errs["composite_tiles"], err)
@@ -823,12 +900,14 @@ def tiles_parity(name, scene):
             errs["composite_tiles_bwd"],
             check_tiles_bwd(ti.bwd_args(nch, 3), name))
     say(f"parity {name}: composite_tiles max abs err "
-        f"{errs['composite_tiles']:.3g} (maps; nchunks equal) at C=3 and 16, "
-        f"stop 0 and 1e-4; tiles ending early at 1e-4: {early[3]} (C=3), "
-        f"{early[16]} (C=16) of {ti3.lens.shape[0]}; composite_tiles_bwd "
-        f"max abs err {errs['composite_tiles_bwd']:.3g} (gradient tolerance "
-        f"per row group, repeat bit-identical); max_chunks "
-        f"{ti3.max_chunks}, M={ti3.isect.shape[1]}")
+        f"{errs['composite_tiles']:.3g} (maps; nchunks equal, alpha and "
+        f"median bit-identical) at C=3 and 16, stop 0 and 1e-4, rows through "
+        f"the ids with a nonzero sink; tiles ending early at 1e-4: "
+        f"{early[3]} (C=3), {early[16]} (C=16) of {ti3.lens.shape[0]}; "
+        f"composite_tiles_bwd max abs err "
+        f"{errs['composite_tiles_bwd']:.3g} (gradient tolerance per column "
+        f"group, repeat bit-identical); max_chunks {ti3.max_chunks}, "
+        f"M={ti3.ids.shape[0]}")
     return ti3, errs, early[3]
 
 
@@ -838,7 +917,9 @@ def check_edge_cases(dev):
     plain versions against the JAX package on the same inputs): kernel 2's
     maps, median slot and banked prefix and kernel 3 at V = 6 and 19;
     kernel 5 at C = 3 and 16 and stop 0 and 1e-4, kernel 6 on each of
-    those forwards' nchunks and on one chunk fewer.  The tied weights are
+    those forwards' nchunks and on one chunk fewer, both reading the
+    cases' packed columns as rows through shuffled ids (no sink: the tie
+    is searched at the splats' own positions).  The tied weights are
     searched on the card, so the tie holds in the kernels' arithmetic.
     Returns the max abs errors."""
     errs = dict.fromkeys(("composite", "composite_bwd", "composite_tiles",
@@ -855,8 +936,8 @@ def check_edge_cases(dev):
         errs["composite"] = max(errs["composite"], err)
         errs["composite_bwd"] = max(errs["composite_bwd"], check_composite_bwd(
             e.g, e.mask, e.ntx, fwd, 4, "edge cases"))
-        ti = TilesInputs(e.isect, e.starts, e.lens, e.ntx, v - 3,
-                         e.max_chunks)
+        ti = TilesInputs.of_matrix(e.isect, e.starts, e.lens, e.ntx, v - 3,
+                                   e.max_chunks, seed=v)
         for stop in (0.0, 1e-4):
             err, nch, _ = check_tiles_fwd(ti, stop)
             errs["composite_tiles"] = max(errs["composite_tiles"], err)
@@ -978,24 +1059,20 @@ def pallas_layer_times(params, alive, cam, cfg, step=0):
         return tiles.align_segments(bins.starts, bins.sorted_gid,
                                     composite.CHUNK)
 
-    gid, starts, lens, valid = align()
-
-    def pack():
-        return rasterize.pack_intersections(proj, op, colors, proj.normal,
-                                            gid, valid)
-
-    isect = pack()
+    gid, starts, lens, _ = align()
+    per_gauss = rasterize.pad_per_gauss(
+        rasterize.pack_per_gauss(proj, op, proj.normal, colors))
     k_cap = opts.tile_capacity or tiles.default_tile_capacity(
         alive.shape[0])
-    args = (isect, starts, lens, bins.num_tiles_x, TS, colors.shape[1], NEAR,
-            opts.stop_threshold, -(-k_cap // composite.CHUNK))
+    args = (per_gauss, gid, starts, lens, bins.num_tiles_x, TS,
+            colors.shape[1], NEAR, opts.stop_threshold,
+            -(-k_cap // composite.CHUNK))
     return {
         "colors": median_ms(
             lambda: rade_gs.compute_colors(params, cam, step, cfg)),
         "projection": median_ms(project),
         "binning (plan, decode, sort, windows)": median_ms(binning),
         "align segments": median_ms(align),
-        "pack (gather)": median_ms(pack),
         "composite_tiles": median_ms(
             lambda: composite.composite_tiles_fwd(*args)),
     }
@@ -1341,10 +1418,10 @@ def train_layer_times(tr):
     bwd = "composite_tiles_bwd kernel" if pallas else "composite_bwd kernel"
     out[bwd] = median_ms(lambda: getattr(bwd_module, bwd_name)(*bargs))
     if pallas:
-        ti = TilesInputs(*bargs[:4], bargs[7], bargs[9])
+        ti = TilesInputs(*bargs[:5], bargs[8], bargs[10], bargs[11])
         idx = segsum.spread_masked(meta.aligned_gid, meta.aligned_valid, n)
-        d = ti.isect.shape[0]
-        kernels = {"tiles": ti, "nchunks": bargs[4], "bwd_args": bargs}
+        d = ti.per_gauss.shape[1]
+        kernels = {"tiles": ti, "nchunks": bargs[5], "bwd_args": bargs}
         update = strategy.update_state_from_isect
     else:
         idx = window_idx(meta.bins, n)
@@ -1399,6 +1476,7 @@ def main() -> int:
     scenes = {"flagship": make_scene("flagship", dev),
               "bench": make_scene("bench", dev)}
     inputs = {name: parity(name, sc) for name, sc in scenes.items()}
+    check_decode_plans(dev)
     tiles_in = {name: tiles_parity(name, sc) for name, sc in scenes.items()}
     if not sum(early for _, _, early in tiles_in.values()):
         raise AssertionError("composite_tiles: no tile ended early at "
@@ -1428,17 +1506,21 @@ def main() -> int:
             ("xla", scenes, {"decode": 1, "composite": 1}),
             ("pallas", pallas_scenes, {"decode": 1, "composite_tiles": 1})):
         reset_counts()
-        outs = {name: [render(p, a, cam, cfg)[0] for cam in cams]
-                for name, (p, a, cams, cfg) in path_scenes.items()}
+        with captured(rasterize, "pack_intersections") as packs:
+            outs = {name: [render(p, a, cam, cfg)[0] for cam in cams]
+                    for name, (p, a, cams, cfg) in path_scenes.items()}
         torch.cuda.synchronize()
         render_launches = counts()
+        if packs:
+            raise AssertionError(f"render ({backend}): {len(packs)} calls of "
+                                 "pack_intersections")
         n_renders = sum(len(o) for o in outs.values())
         want = {k: per_render.get(k, 0) * n_renders for k in render_launches}
         if render_launches != want:
             raise AssertionError(f"render ({backend}): launches "
                                  f"{render_launches}, expected {want}")
         say(f"main path (render, {backend}): {n_renders} renders, launches "
-            f"{render_launches}")
+            f"{render_launches}, no pack_intersections call")
         for name, (params, _, cams, _) in path_scenes.items():
             for i, (out, cam) in enumerate(zip(outs[name], cams)):
                 check_outputs(f"{name} camera {i} ({backend})", out, cam)
@@ -1522,7 +1604,7 @@ def main() -> int:
         f"composite_tiles max abs err {step_errs['composite_tiles']:.3g} "
         f"(nchunks equal), composite_tiles_bwd on the loss's cotangent max "
         f"abs err {step_errs['composite_tiles_bwd']:.3g} (gradient "
-        f"tolerance per row group, repeat bit-identical); "
+        f"tolerance per column group, repeat bit-identical); "
         f"{int(pkin['nchunks'].sum())} of "
         f"{int(chunks_walked(pkin['tiles']).sum())} chunks run")
     prefine_at = PALLAS_REFINE_AT
@@ -1586,7 +1668,7 @@ def main() -> int:
             "composite_tiles_ms": median_ms(
                 lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
             "composite_tiles_plain_ms": median_ms(
-                lambda: composite.composite_tiles_fwd_plain(
+                lambda: composite.composite_tiles_fwd_gather_plain(
                     *ti.fwd_args(stop))),
             "composite_tiles_bound": composite_tiles_bound(ti, nch),
             "pallas_render_ms": timings(
@@ -1690,7 +1772,7 @@ def main() -> int:
     b.update({
         "composite_tiles_bwd_ms": player["composite_tiles_bwd kernel"],
         "composite_tiles_bwd_plain_ms": median_ms(
-            lambda: composite.composite_tiles_bwd_plain(*bt)),
+            lambda: composite.composite_tiles_bwd_gather_plain(*bt)),
         "composite_tiles_bwd_bound": composite_tiles_bwd_bound(
             pkin["tiles"], pkin["nchunks"]),
     })

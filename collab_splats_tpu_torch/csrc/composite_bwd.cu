@@ -1,12 +1,17 @@
 // Per-tile compositing backward: packed-map cotangents -> one gradient
-// column per intersection.
+// row per intersection slot.
 //
 // Replaces the Pallas kernel collab_splats_tpu/ops/pallas/composite.py::
 // composite_tiles_bwd_call (composite_bwd_kernel), the backward of
-// composite_fwd.cu.  Contract: d_isect [D, M] equals ops/cuda/composite.py::
-// composite_tiles_bwd_plain; it is written only in the chunks the forward
-// ran (nchunks) and only in the 12 + C rows the compositor reads, and the
-// caller passes it zeroed.  Per (pixel, slot) of a tile's first nchunks
+// composite_fwd.cu, whose inputs it takes: slot s of a tile's segment reads
+// the row per_gauss[ids[s]] of the [N, Dp] per-gaussian matrix, plus
+// sink[:, s] on its (u, v) when a sink is given.  Contract: d_slot
+// [m_al, Dp], slot-major (the rows the sorted segment sum reads), equals
+// ops/cuda/composite.py::composite_tiles_bwd_gather_plain; it is written
+// only in the slots of the chunks the forward ran (nchunks) below the
+// segment's length, 0 in the columns past the 12 + C the compositor reads,
+// and the caller passes it zeroed.  Per (pixel, slot) of a tile's first
+// nchunks
 // chunks, with lc the log T after the slot (as in the forward), t_in =
 // exp(lc) / (1 - alpha), w = alpha t_in, suffix = the sum of g_w w over the
 // later slots of the walk, t_final = exp(log T after the walk) and
@@ -37,8 +42,8 @@
 // Design: one block per 16x16 tile, one thread per pixel; warp w owns the
 // 8x4 pixel block at (8 (w % 2), 4 (w / 2)).  Each chunk is staged in
 // shared memory as 128 rows padded to whole float4s (16 floats at C = 3,
-// 32 at C = 16), two threads per slot writing whole float4s, and read as
-// 16-byte broadcasts:
+// 32 at C = 16), gathered through the slots' ids, two threads per slot
+// writing whole float4s, and read as 16-byte broadcasts:
 //   u v a b | c cut opac depth | plane_u plane_v normal colours...
 // where cut = sigma_cut(opac) (core/compositing.py), computed once per slot
 // while staging: a pair with sigma beyond it is dead whatever exp rounds
@@ -65,8 +70,8 @@
 // C = 3, 31 at C = 16.  Lane l writes it over its own table entry for the
 // slot, which it has read; after the batch the 8 warps' partials are added
 // in a fixed order into a [12 + C, 33] table of slot sums (threads on
-// consecutive terms, so no bank is read twice at once) and written out row
-// by row.  No atomics: a repeated launch gives the same bits.  Shared
+// consecutive terms, so no bank is read twice at once) and written out as
+// the batch's consecutive Dp-float slot rows.  No atomics: a repeated launch gives the same bits.  Shared
 // memory: 43.5 KB at C = 3, 53.4 KB at C = 16 (dynamic), so four blocks
 // fit on an SM, and __launch_bounds__ holds the registers to 64 for them
 // (at C = 16 a few values spill).  32-slot batches and four blocks ran
@@ -97,6 +102,7 @@ struct Layout {
   static constexpr int kPad = R <= 16 ? 16 : 32;   // terms a lane reduces
   static_assert(R <= 32, "one slot's sums must fit in a warp");
   static constexpr int kRow = R + 1 <= 16 ? 16 : 32;  // + the cut
+  static constexpr int kDp = (R + 7) / 8 * 8;      // per_gauss row width
   // chunk rows, the batch's lc table (and the warps' partials), the
   // slots' warp masks, the batch's sums
   static constexpr int kSmemFloats =
@@ -109,8 +115,8 @@ __device__ __forceinline__ float sigma_cut(float opac) {
   return cut < 50.f ? cut : __int_as_float(0x7f800000);
 }
 
-// The row of the packed matrix at staged position pos (see the layout
-// above): -1 for the cut, -2 for padding.
+// The per_gauss column (ops/rasterize.py's PG_* layout) at staged position
+// pos (see the layout above): -1 for the cut, -2 for padding.
 __device__ __forceinline__ int source_row(int pos, int rows) {
   if (pos < 5) return pos;   // u v a b c
   if (pos == 5) return -1;   // cut
@@ -205,22 +211,33 @@ __device__ __forceinline__ unsigned warp_mask(float4 q0, float4 q1,
 
 // The first `quads` float4s of a chunk's staged rows, with the cut: two
 // threads per slot, each writing whole float4s (a scalar store per value
-// would conflict 16 ways in shared memory); the 128 threads on one float4
-// read 128 consecutive values of each of its rows.
+// would conflict 16 ways in shared memory) of the row gathered through the
+// slot's id, the sink added to u and v; slots past the segment's n_valid
+// are not read (zeros).
 template <int C>
 __device__ __forceinline__ void stage_chunk(float* sb, unsigned* swm,
-                                            const float* src, long long m_al,
-                                            int quads, int p, float tu0,
-                                            float tv0) {
+                                            const float* __restrict__ pg,
+                                            const int* __restrict__ ids,
+                                            const float* __restrict__ sink,
+                                            long long s0, long long m_al,
+                                            int n_valid, int quads, int p,
+                                            float tu0, float tv0) {
   constexpr int kRow = Layout<C>::kRow;
   constexpr int R = Layout<C>::R;
+  constexpr int kDp = Layout<C>::kDp;
   const int j = p % kChunk;
+  const float* row =
+      j < n_valid ? pg + (size_t)__ldg(ids + s0 + j) * kDp : nullptr;
   for (int q = p / kChunk; q < quads; q += kPixels / kChunk) {
     float x[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int r = source_row(4 * q + k, R);
-      x[k] = r >= 0 ? src[(long long)r * m_al + j] : 0.f;
+      x[k] = r >= 0 && row != nullptr ? __ldg(row + r) : 0.f;
+    }
+    if (q == 0 && row != nullptr && sink != nullptr) {
+      x[0] = __fadd_rn(x[0], __ldg(sink + s0 + j));
+      x[1] = __fadd_rn(x[1], __ldg(sink + m_al + s0 + j));
     }
     if (q == 1) x[1] = sigma_cut(x[2]);
     *reinterpret_cast<float4*>(sb + j * kRow + 4 * q) =
@@ -263,16 +280,19 @@ __device__ __forceinline__ float weight(float alpha, float lc, float* t_in,
 
 template <int C>
 __global__ void __launch_bounds__(kPixels, 4)
-composite_tiles_bwd_kernel(const float* __restrict__ isect,
+composite_tiles_bwd_kernel(const float* __restrict__ per_gauss,
+                           const int* __restrict__ ids,
+                           const float* __restrict__ sink,
                            const int* __restrict__ starts,
                            const int* __restrict__ lens,
                            const int* __restrict__ nchunks,
                            const float* __restrict__ g_packed,
                            long long m_al, int ntx, float near_plane,
                            int max_chunks, float* __restrict__ scratch,
-                           float* __restrict__ d_isect) {
+                           float* __restrict__ d_slot) {
   using L = Layout<C>;
   constexpr int R = L::R;
+  constexpr int kDp = L::kDp;
   constexpr int kPad = L::kPad;
   constexpr int kRow = L::kRow;
   extern __shared__ __align__(16) float smem[];
@@ -300,7 +320,7 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
   const long long start = starts[tile];
   const int seg_len = lens[tile];
   // The forward's chunk count, clamped to the segment's walk as the
-  // forward bounds it, so the scratch and the columns stay in range.
+  // forward bounds it, so the scratch and the slots stay in range.
   const long long room = (m_al - start) / kChunk;
   const int nc = (int)min(
       (long long)min(nchunks[tile],
@@ -313,14 +333,15 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
 
   // ---- Phase 1: replay the forward; bank the carries, find the median.
   float log_t = 0.f, wmax = 0.f;
-  int sel = -1;  // the median slot, as a column of the tile's segment
+  int sel = -1;  // the median slot, as a slot of the tile's segment
   bool crossed = false;
   for (int ci = 0; ci < nc; ++ci) {
     __syncthreads();  // the previous chunk is consumed
-    stage_chunk<C>(sb, swm, isect + start + (long long)ci * kChunk, m_al, 2,
-                   p, tu0, tv0);
-    __syncthreads();
     const int n_valid = min(kChunk, seg_len - ci * kChunk);
+    stage_chunk<C>(sb, swm, per_gauss, ids, sink,
+                   start + (long long)ci * kChunk, m_al, n_valid, 2, p, tu0,
+                   tv0);
+    __syncthreads();
     float* bk = bank + (size_t)ci * kNBatch * kPixels;
     bk[0] = log_t;
     float cum = 0.f;
@@ -364,13 +385,14 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
   float suffix = 0.f;
   for (int ci = nc - 1; ci >= 0; --ci) {
     __syncthreads();
-    stage_chunk<C>(sb, swm, isect + start + (long long)ci * kChunk, m_al,
-                   kRow / 4, p, tu0, tv0);
-    __syncthreads();
     const int n_valid = min(kChunk, seg_len - ci * kChunk);
+    stage_chunk<C>(sb, swm, per_gauss, ids, sink,
+                   start + (long long)ci * kChunk, m_al, n_valid, kRow / 4,
+                   p, tu0, tv0);
+    __syncthreads();
     const float* bk = bank + (size_t)ci * kNBatch * kPixels;
     const float lt_in = bk[0];
-    float* dcol = d_isect + start + (long long)ci * kChunk;
+    float* drow = d_slot + (size_t)(start + (long long)ci * kChunk) * kDp;
     for (int b = (n_valid - 1) / kBatch; b >= 0; --b) {
       const int j0 = b * kBatch;
       const int nb = min(kBatch, n_valid - j0);
@@ -470,11 +492,13 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
         ss[r * kSumStride + jj] = r < 2 ? -s : s;
       }
       __syncthreads();
-      // The batch's gradient columns, row by row.
-      for (int i = p; i < R * nb; i += kPixels) {
-        const int r = i / nb;
-        const int jj = i - r * nb;
-        dcol[(long long)r * m_al + j0 + jj] = ss[r * kSumStride + jj];
+      // The batch's gradient rows, consecutive in d_slot: threads on
+      // consecutive columns, 0 past the 12 + C.
+      for (int i = p; i < kDp * nb; i += kPixels) {
+        const int jj = i / kDp;
+        const int r = i - jj * kDp;
+        drow[(size_t)(j0 + jj) * kDp + r] = r < R ? ss[r * kSumStride + jj]
+                                                  : 0.f;
       }
       __syncthreads();  // the partials and sums are consumed
     }
@@ -482,18 +506,19 @@ composite_tiles_bwd_kernel(const float* __restrict__ isect,
 }
 
 template <int C>
-int launch(const float* isect, const int* starts, const int* lens,
-           const int* nchunks, const float* g_packed, int t, long long m_al,
-           int ntx, float near_plane, int max_chunks, float* scratch,
-           float* d_isect, cudaStream_t stream) {
+int launch(const float* per_gauss, const int* ids, const float* sink,
+           const int* starts, const int* lens, const int* nchunks,
+           const float* g_packed, int t, long long m_al, int ntx,
+           float near_plane, int max_chunks, float* scratch, float* d_slot,
+           cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * Layout<C>::kSmemFloats;
   cudaError_t err = cudaFuncSetAttribute(
       composite_tiles_bwd_kernel<C>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   composite_tiles_bwd_kernel<C><<<t, kPixels, bytes, stream>>>(
-      isect, starts, lens, nchunks, g_packed, m_al, ntx, near_plane,
-      max_chunks, scratch, d_isect);
+      per_gauss, ids, sink, starts, lens, nchunks, g_packed, m_al, ntx,
+      near_plane, max_chunks, scratch, d_slot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -504,28 +529,33 @@ int launch(const float* isect, const int* starts, const int* lens,
 extern "C" int composite_tiles_bwd_banked() { return kNBatch; }
 
 // Returns cudaGetLastError() after the launch; -1 for an unsupported C.
-extern "C" int composite_tiles_bwd(const void* isect, const void* starts,
+// ``per_gauss``, ``ids`` and ``sink`` (may be null) as composite_fwd.cu
+// takes them; ``d_slot`` [m_al, Dp] float32, zeroed.
+extern "C" int composite_tiles_bwd(const void* per_gauss, const void* ids,
+                                   const void* sink, const void* starts,
                                    const void* lens, const void* nchunks,
                                    const void* g_packed, int t,
                                    long long m_al, int ntx, int c,
                                    float near_plane, int max_chunks,
-                                   void* scratch, void* d_isect,
+                                   void* scratch, void* d_slot,
                                    void* stream) {
-  const auto* ip = static_cast<const float*>(isect);
+  const auto* pg = static_cast<const float*>(per_gauss);
+  const auto* ip = static_cast<const int*>(ids);
+  const auto* kp = static_cast<const float*>(sink);
   const auto* sp = static_cast<const int*>(starts);
   const auto* lp = static_cast<const int*>(lens);
   const auto* np = static_cast<const int*>(nchunks);
   const auto* gp = static_cast<const float*>(g_packed);
   auto* sc = static_cast<float*>(scratch);
-  auto* dp = static_cast<float*>(d_isect);
+  auto* dp = static_cast<float*>(d_slot);
   auto st = static_cast<cudaStream_t>(stream);
   switch (c) {
     case 3:
-      return launch<3>(ip, sp, lp, np, gp, t, m_al, ntx, near_plane,
-                       max_chunks, sc, dp, st);
+      return launch<3>(pg, ip, kp, sp, lp, np, gp, t, m_al, ntx,
+                       near_plane, max_chunks, sc, dp, st);
     case 16:
-      return launch<16>(ip, sp, lp, np, gp, t, m_al, ntx, near_plane,
-                        max_chunks, sc, dp, st);
+      return launch<16>(pg, ip, kp, sp, lp, np, gp, t, m_al, ntx,
+                        near_plane, max_chunks, sc, dp, st);
     default:
       return -1;
   }

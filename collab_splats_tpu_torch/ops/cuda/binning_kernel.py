@@ -152,12 +152,11 @@ def decode_bin_keys(d: DecodeInputs, m_cap: int, ntx: int, ts: int,
                          f"[{n}, 6] on {dev}")
     if not 0 < m_cap <= (1 << 30):
         raise ValueError(f"decode_bin_keys: m_cap {m_cap} out of range")
-    ends = (d.offsets + d.counts).contiguous()
     key = torch.empty(m_cap, dtype=torch.int32, device=dev)
     gid = torch.empty(m_cap, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _fn()(
-            d.offsets.data_ptr(), ends.data_ptr(), d.ncols.data_ptr(),
+            d.offsets.data_ptr(), d.counts.data_ptr(), d.ncols.data_ptr(),
             d.tile0.data_ptr(), d.rank.data_ptr(),
             d.cull.data_ptr() if d.cull is not None else None,
             n, m_cap, ntx, ts, rank_bits, num_tiles,

@@ -8,10 +8,21 @@ composite_tiles_fwd`` and ``composite_tiles_bwd_call`` (and the
 ``RenderOptions(backend="pallas")``.  For CPU tensors each wrapper runs its
 plain version; for CUDA tensors it launches its kernel or raises.
 
-Each tile owns the columns ``starts[t] : starts[t] + lens[t]`` of the
-packed intersection matrix ``isect`` [D, M] (``ops/rasterize.py::
-pack_intersections``; ``starts`` are multiples of CHUNK) and walks them
-front to back in CHUNK-column chunks.  Row layout of ``isect``:
+The wrappers read each slot's row through the aligned ids: slot ``s`` of
+the aligned intersection list (``ops/tiles.py::align_segments``) is the row
+``per_gauss[aligned_gid[s]]`` of the [N, Dp] per-gaussian matrix
+(``ops/rasterize.py``'s PG_* columns, padded to a multiple of 8), plus
+``sink[:, s]`` on its (u, v) when a per-slot sink [2, M] is given.  That is
+column ``s`` of the JAX package's packed matrix ``isect`` [D, M]
+(``ops/rasterize.py::pack_intersections``, with the sink added), which the
+packed plain versions (:func:`composite_tiles_fwd_plain`,
+:func:`composite_tiles_bwd_plain`) walk; the gather plain versions are
+those composed with the gather (:func:`gather_slots`).  The backward's
+gradient is slot-major, [M, Dp]: the rows the sorted segment sum reduces
+per gaussian.  Each tile owns the slots ``starts[t] : starts[t] + lens[t]``
+(``starts`` are multiples of CHUNK) and walks them front to back in
+CHUNK-slot chunks; only slots below ``lens[t]`` are read.  Row layout of
+``isect`` (the columns of ``per_gauss``):
 
     0 u, 1 v | 2 a, 3 b, 4 c (conic) | 5 depth, 6 plane_u, 7 plane_v |
     8 opacity | 9, 10, 11 normal | 12.. the C colour channels | padding
@@ -42,6 +53,7 @@ import torch
 
 from ...core.compositing import (ALPHA_CUTOFF, ALPHA_MAX, LOG_HALF,
                                  pixel_centers)
+from ..segsum import segment_sum, spread_masked
 from . import build
 from .build import KERNEL_TILE_SIZE, check_tensor
 
@@ -63,7 +75,8 @@ _F = ctypes.c_float
 @functools.cache
 def _fwd_fn():
     fn = build.load("composite_fwd").composite_tiles_fwd
-    fn.argtypes = [_P, _P, _P, _I, _L, _I, _I, _F, _F, _I, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _F, _I, _P, _P,
+                   _P]
     fn.restype = _I
     return fn
 
@@ -72,7 +85,8 @@ def _fwd_fn():
 def _bwd_fn():
     lib = build.load("composite_bwd")
     fn = lib.composite_tiles_bwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _P,
+                   _P, _P]
     fn.restype = _I
     # Entries the kernel banks per (tile, chunk, pixel) in its scratch.
     return fn, lib.composite_tiles_bwd_banked()
@@ -326,145 +340,217 @@ def composite_tiles_bwd_plain(isect, starts, lens, num_tiles_x, nchunks,
     return d_isect
 
 
+def row_width(n_color: int) -> int:
+    """Dp: the per-gaussian row width of ``n_color`` colour channels, 12 + C
+    padded to a multiple of 8 (as the JAX package pads its packed rows)."""
+    return -(-(D_BASE + n_color) // 8) * 8
+
+
+def gather_slots(per_gauss, aligned_gid, sink=None):
+    """The packed matrix [Dp, M] whose column ``s`` is the row
+    ``per_gauss[aligned_gid[s]]``, plus ``sink[:, s]`` on (u, v):
+    ``ops/rasterize.py::pack_intersections``' matrix with the sink added,
+    as the gather plain versions hand it to the packed ones."""
+    isect = per_gauss[aligned_gid.long()].T.contiguous()
+    if sink is not None:
+        isect[:2] += sink
+    return isect
+
+
+def composite_tiles_fwd_gather_plain(per_gauss, aligned_gid, starts, lens,
+                                     num_tiles_x, tile_size, n_color,
+                                     near_plane=0.01, stop_threshold=1e-4,
+                                     max_chunks=64, sink=None):
+    """Plain version of :func:`composite_tiles_fwd`: the packed plain version
+    on the gathered matrix."""
+    return composite_tiles_fwd_plain(
+        gather_slots(per_gauss, aligned_gid, sink), starts, lens,
+        num_tiles_x, tile_size, n_color, near_plane, stop_threshold,
+        max_chunks)
+
+
+def composite_tiles_bwd_gather_plain(per_gauss, aligned_gid, starts, lens,
+                                     num_tiles_x, nchunks, g_packed,
+                                     tile_size, n_color, near_plane,
+                                     max_chunks, sink=None):
+    """Plain version of :func:`composite_tiles_bwd_call`: the packed plain
+    version on the gathered matrix, transposed to slot-major rows."""
+    return composite_tiles_bwd_plain(
+        gather_slots(per_gauss, aligned_gid, sink), starts, lens,
+        num_tiles_x, nchunks, g_packed, tile_size, n_color, near_plane,
+        max_chunks).T.contiguous()
+
+
 # ------------------------------------------------------------------ wrappers
-def _check_common(name, isect, starts, lens, tile_size, n_color,
-                  max_chunks):
-    if isect.dim() != 2 or isect.dtype != torch.float32 \
-            or not isect.is_contiguous():
-        raise ValueError(f"{name}: isect must be contiguous float32 [D, M]")
+def _check_common(name, per_gauss, aligned_gid, sink, starts, lens,
+                  tile_size, n_color, max_chunks):
+    dev = per_gauss.device
     if n_color not in KERNEL_COLOR_CHANNELS:
         raise ValueError(f"{name}: C={n_color} colour channels; the kernel "
                          f"is built for {KERNEL_COLOR_CHANNELS}")
     if tile_size != KERNEL_TILE_SIZE:
         raise ValueError(f"{name}: tile size {tile_size}; the kernel runs "
                          f"{KERNEL_TILE_SIZE}x{KERNEL_TILE_SIZE} tiles")
-    if isect.shape[0] < D_BASE + n_color:
-        raise ValueError(f"{name}: isect {list(isect.shape)} needs at least "
-                         f"{D_BASE + n_color} rows")
     if max_chunks < 1:
         raise ValueError(f"{name}: max_chunks={max_chunks}")
+    n, dp = per_gauss.shape[0], row_width(n_color)
+    check_tensor(f"{name}: per_gauss", per_gauss, (n, dp), torch.float32,
+                 dev)
+    if per_gauss.data_ptr() % 16:
+        raise ValueError(f"{name}: per_gauss must be 16-byte aligned")
+    m = aligned_gid.shape[0]
+    check_tensor(f"{name}: aligned_gid", aligned_gid, (m,), torch.int32, dev)
+    if sink is not None:
+        check_tensor(f"{name}: sink", sink, (2, m), torch.float32, dev)
     t = lens.shape[0]
-    dev = isect.device
     check_tensor(f"{name}: starts", starts, (t + 1,), torch.int32, dev)
     check_tensor(f"{name}: lens", lens, (t,), torch.int32, dev)
-    return t
+    return t, m
 
 
-def composite_tiles_fwd(isect: torch.Tensor, starts: torch.Tensor,
-                        lens: torch.Tensor, num_tiles_x: int, tile_size: int,
-                        n_color: int, near_plane: float = 0.01,
-                        stop_threshold: float = 1e-4, max_chunks: int = 64):
+def composite_tiles_fwd(per_gauss: torch.Tensor, aligned_gid: torch.Tensor,
+                        starts: torch.Tensor, lens: torch.Tensor,
+                        num_tiles_x: int, tile_size: int, n_color: int,
+                        near_plane: float = 0.01,
+                        stop_threshold: float = 1e-4, max_chunks: int = 64,
+                        sink: torch.Tensor | None = None):
     """Composite every tile's segment (see the module doc).
 
     Args:
-        isect: [D, M] float32 packed intersections, D >= 12 + n_color.
+        per_gauss: [N, Dp] float32 per-gaussian rows, Dp =
+            :func:`row_width` (n_color).
+        aligned_gid: [M] int32 gaussian of each aligned slot, in [0, N)
+            below each segment's length.
         starts: [T+1] int32 segment starts, multiples of CHUNK.
         lens: [T] int32 true segment lengths.
         num_tiles_x: tiles per image row.
         max_chunks: at most this many chunks per tile.
+        sink: optional [2, M] float32 added to each slot's (u, v).
 
     Returns:
         (packed [T, P, C+6] float32: colour, normal, alpha, depth_sum
         (unnormalized) and median per pixel; nchunks [T] int32).
     """
-    if isect.device.type == "cpu":
-        return composite_tiles_fwd_plain(
-            isect, starts, lens, num_tiles_x, tile_size, n_color,
-            near_plane, stop_threshold, max_chunks)
-    if isect.device.type != "cuda":
+    args = (per_gauss, aligned_gid, starts, lens, num_tiles_x, tile_size,
+            n_color, near_plane, stop_threshold, max_chunks, sink)
+    if per_gauss.device.type == "cpu":
+        return composite_tiles_fwd_gather_plain(*args)
+    if per_gauss.device.type != "cuda":
         raise ValueError(f"composite_tiles_fwd: unsupported device "
-                         f"{isect.device}")
-    t = _check_common("composite_tiles_fwd", isect, starts, lens, tile_size,
-                      n_color, max_chunks)
-    dev = isect.device
+                         f"{per_gauss.device}")
+    t, m = _check_common("composite_tiles_fwd", per_gauss, aligned_gid, sink,
+                         starts, lens, tile_size, n_color, max_chunks)
+    dev = per_gauss.device
     out = torch.empty((t, tile_size * tile_size, n_color + 6),
                       dtype=torch.float32, device=dev)
     nchunks = torch.empty(t, dtype=torch.int32, device=dev)
     if t == 0:
         return out, nchunks
     with torch.cuda.device(dev):
-        rc = _fwd_fn()(isect.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-                       t, isect.shape[1], num_tiles_x, n_color, near_plane,
-                       log_stop(stop_threshold), max_chunks, out.data_ptr(),
-                       nchunks.data_ptr(), build.stream_handle(dev))
+        rc = _fwd_fn()(per_gauss.data_ptr(), aligned_gid.data_ptr(),
+                       sink.data_ptr() if sink is not None else None,
+                       starts.data_ptr(), lens.data_ptr(), t, m, num_tiles_x,
+                       n_color, near_plane, log_stop(stop_threshold),
+                       max_chunks, out.data_ptr(), nchunks.data_ptr(),
+                       build.stream_handle(dev))
     build.check(rc, "composite_tiles_fwd")
     global launches
     launches += 1
     return out, nchunks
 
 
-def composite_tiles_bwd_call(isect: torch.Tensor, starts: torch.Tensor,
+def composite_tiles_bwd_call(per_gauss: torch.Tensor,
+                             aligned_gid: torch.Tensor, starts: torch.Tensor,
                              lens: torch.Tensor, num_tiles_x: int,
                              nchunks: torch.Tensor, g_packed: torch.Tensor,
                              tile_size: int, n_color: int, near_plane: float,
-                             max_chunks: int) -> torch.Tensor:
+                             max_chunks: int,
+                             sink: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Backward of :func:`composite_tiles_fwd`: the forward's inputs and
     ``nchunks``, and the cotangent ``g_packed`` [T, P, C+6] of its packed
-    maps -> d_isect [D, M] float32, 0 outside the chunks the forward ran
-    (and in the padding rows)."""
-    if isect.device.type == "cpu":
-        return composite_tiles_bwd_plain(
-            isect, starts, lens, num_tiles_x, nchunks, g_packed, tile_size,
-            n_color, near_plane, max_chunks)
-    if isect.device.type != "cuda":
+    maps -> d_slot [M, Dp] float32, each slot's gradient row (the sink's
+    gradient is its columns 0 and 1), 0 outside the chunks the forward ran
+    and in the padding columns."""
+    args = (per_gauss, aligned_gid, starts, lens, num_tiles_x, nchunks,
+            g_packed, tile_size, n_color, near_plane, max_chunks, sink)
+    if per_gauss.device.type == "cpu":
+        return composite_tiles_bwd_gather_plain(*args)
+    if per_gauss.device.type != "cuda":
         raise ValueError(f"composite_tiles_bwd_call: unsupported device "
-                         f"{isect.device}")
+                         f"{per_gauss.device}")
     name = "composite_tiles_bwd_call"
-    t = _check_common(name, isect, starts, lens, tile_size, n_color,
-                      max_chunks)
-    dev = isect.device
+    t, m = _check_common(name, per_gauss, aligned_gid, sink, starts, lens,
+                         tile_size, n_color, max_chunks)
+    dev = per_gauss.device
     p = tile_size * tile_size
     check_tensor(f"{name}: nchunks", nchunks, (t,), torch.int32, dev)
     check_tensor(f"{name}: g_packed", g_packed, (t, p, n_color + 6),
                  torch.float32, dev)
-    d_isect = torch.zeros_like(isect)
+    d_slot = torch.zeros((m, row_width(n_color)), dtype=torch.float32,
+                         device=dev)
     if t == 0:
-        return d_isect
+        return d_slot
     # Per (tile, chunk, pixel): the log T carried into the chunk and the
     # in-chunk carry at each of its batch boundaries.
     fn, banked = _bwd_fn()
     scratch = torch.empty((t, max_chunks, banked, p), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
-        rc = fn(isect.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-                       nchunks.data_ptr(), g_packed.data_ptr(), t,
-                       isect.shape[1], num_tiles_x, n_color, near_plane,
-                       max_chunks, scratch.data_ptr(), d_isect.data_ptr(),
-                       build.stream_handle(dev))
+        rc = fn(per_gauss.data_ptr(), aligned_gid.data_ptr(),
+                sink.data_ptr() if sink is not None else None,
+                starts.data_ptr(), lens.data_ptr(), nchunks.data_ptr(),
+                g_packed.data_ptr(), t, m, num_tiles_x, n_color, near_plane,
+                max_chunks, scratch.data_ptr(), d_slot.data_ptr(),
+                build.stream_handle(dev))
     build.check(rc, "composite_tiles_bwd_call")
     global bwd_launches
     bwd_launches += 1
-    return d_isect
+    return d_slot
 
 
 class _CompositeTiles(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, isect, starts, lens, num_tiles_x, tile_size, n_color,
-                near_plane, stop_threshold, max_chunks):
+    def forward(ctx, per_gauss, sink, aligned_gid, valid, starts, lens,
+                num_tiles_x, tile_size, n_color, near_plane, stop_threshold,
+                max_chunks):
         out, nchunks = composite_tiles_fwd(
-            isect, starts, lens, num_tiles_x, tile_size, n_color, near_plane,
-            stop_threshold, max_chunks)
-        ctx.save_for_backward(isect, starts, lens, nchunks)
+            per_gauss, aligned_gid, starts, lens, num_tiles_x, tile_size,
+            n_color, near_plane, stop_threshold, max_chunks, sink)
+        ctx.save_for_backward(per_gauss, sink, aligned_gid, valid, starts,
+                              lens, nchunks)
         ctx.args = (num_tiles_x, tile_size, n_color, near_plane, max_chunks)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        isect, starts, lens, nchunks = ctx.saved_tensors
+        per_gauss, sink, aligned_gid, valid, starts, lens, nchunks = \
+            ctx.saved_tensors
         ntx, ts, n_color, near_plane, max_chunks = ctx.args
-        d_isect = composite_tiles_bwd_call(
-            isect, starts, lens, ntx, nchunks, g.contiguous(), ts, n_color,
-            near_plane, max_chunks)
-        return (d_isect,) + (None,) * 8
+        d_slot = composite_tiles_bwd_call(
+            per_gauss, aligned_gid, starts, lens, ntx, nchunks,
+            g.contiguous(), ts, n_color, near_plane, max_chunks, sink)
+        # Per-gaussian sums of the slots' rows: the sorted segment sum
+        # (padding slots spread, their rows 0).
+        n = per_gauss.shape[0]
+        d_per_gauss = segment_sum(spread_masked(aligned_gid, valid, n),
+                                  d_slot, n)
+        d_sink = (d_slot[:, :2].T.contiguous() if ctx.needs_input_grad[1]
+                  else None)
+        return (d_per_gauss, d_sink) + (None,) * 10
 
 
-def composite_tiles(isect: torch.Tensor, starts: torch.Tensor,
+def composite_tiles(per_gauss: torch.Tensor, aligned_gid: torch.Tensor,
+                    valid: torch.Tensor, starts: torch.Tensor,
                     lens: torch.Tensor, num_tiles_x: int, tile_size: int,
                     n_color: int, near_plane: float, stop_threshold: float,
-                    max_chunks: int) -> torch.Tensor:
+                    max_chunks: int,
+                    sink: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`composite_tiles_fwd`'s packed maps under autograd, with
-    :func:`composite_tiles_bwd_call` as the backward (gradients reach
-    ``isect`` only)."""
-    return _CompositeTiles.apply(isect, starts, lens, num_tiles_x, tile_size,
-                                 n_color, near_plane, stop_threshold,
-                                 max_chunks)
+    :func:`composite_tiles_bwd_call` as the backward.  Gradients reach
+    ``per_gauss`` (each slot's row summed per gaussian by the sorted
+    segment sum over ``aligned_gid``, ``valid`` [M] marking the real
+    slots) and ``sink``."""
+    return _CompositeTiles.apply(per_gauss, sink, aligned_gid, valid, starts,
+                                 lens, num_tiles_x, tile_size, n_color,
+                                 near_plane, stop_threshold, max_chunks)

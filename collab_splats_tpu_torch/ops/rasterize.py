@@ -9,10 +9,11 @@ binning are dense tensor code shared by both compositors, which
   (with a sorted segment-sum backward, ``ops/segsum.py``), then the
   batched compositor of ``ops/cuda/batched.py`` over every tile at once;
 * ``"pallas"`` (:func:`render_tiled_pallas`): the sorted intersection list
-  re-laid into CHUNK-aligned tile segments, one gather into the packed
-  per-intersection matrix [D, M] (:func:`pack_intersections`, the same
-  segment-sum backward), then the per-tile compositor of
-  ``ops/cuda/composite.py`` with its tile-wide early exit.
+  re-laid into CHUNK-aligned tile segments, then the per-tile compositor of
+  ``ops/cuda/composite.py`` with its tile-wide early exit, which reads each
+  slot's row of the per-gaussian matrix through the aligned ids (its
+  backward sums the slots' gradient rows per gaussian by the same sorted
+  segment sum).
 
 The CUDA kernels run on the card and their plain versions on the CPU.  An
 optional additive screen-space sink on the means collects the mean
@@ -69,21 +70,27 @@ def window_rows(bins: TileBins, per_gauss: torch.Tensor) -> torch.Tensor:
         num_tiles, k_cap, per_gauss.shape[1])
 
 
+def pad_per_gauss(per_gauss: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_per_gauss`'s matrix with zero columns up to a multiple of
+    8 (the per-tile compositor's rows, as the JAX package pads them)."""
+    pad = (-per_gauss.shape[1]) % 8
+    return torch.nn.functional.pad(per_gauss, (0, pad)) if pad else per_gauss
+
+
 def pack_intersections(proj: Projection, opac: torch.Tensor,
                        colors: torch.Tensor, normal_cam: torch.Tensor,
                        sorted_gid: torch.Tensor,
                        valid: torch.Tensor) -> torch.Tensor:
-    """The packed per-intersection matrix [D, M] of the per-tile compositor
-    (row layout in ``ops/cuda/composite.py``): the PG_* columns of each
-    intersection's gaussian, padded to a multiple of 8 rows as in the JAX
-    package.  The gather is :func:`expand_rows`, so its backward is the
-    sorted segment sum; slots where ``valid`` is False (the alignment
-    padding, id 0 in the JAX package) gather spread-out rows instead, which
-    the compositor masks and whose cotangents are exactly 0."""
-    per_gauss = pack_per_gauss(proj, opac, normal_cam, colors)
-    pad = (-per_gauss.shape[1]) % 8
-    if pad:
-        per_gauss = torch.nn.functional.pad(per_gauss, (0, pad))
+    """The JAX package's packed per-intersection matrix [D, M] (row layout
+    in ``ops/cuda/composite.py``): the PG_* columns of each intersection's
+    gaussian, padded to a multiple of 8 rows.  The per-tile compositor no
+    longer takes it (it reads the rows through the ids); it stays as the
+    reference the compositor's gather is held to.  The gather is
+    :func:`expand_rows`, so its backward is the sorted segment sum; slots
+    where ``valid`` is False (the alignment padding, id 0 in the JAX
+    package) gather spread-out rows instead, which the compositor masks and
+    whose cotangents are exactly 0."""
+    per_gauss = pad_per_gauss(pack_per_gauss(proj, opac, normal_cam, colors))
     idx = spread_masked(sorted_gid, valid, per_gauss.shape[0])
     return expand_rows(per_gauss, idx).T.contiguous()
 
@@ -191,9 +198,10 @@ def render_tiled_pallas(
     """Render one camera with the per-tile compositor.
 
     Same contract as :func:`render_tiled`, except that ``absgrad_sink`` is
-    per intersection: zeros of :func:`pallas_sink_shape`, added to the
-    packed 2D-mean rows, so its gradient is the per-(tile, splat) mean
-    gradient (``train/strategy.py::update_state_from_isect`` reads it).
+    per intersection: zeros of :func:`pallas_sink_shape`, added to each
+    slot's 2D mean as the compositor reads it, so its gradient is the
+    per-(tile, splat) mean gradient
+    (``train/strategy.py::update_state_from_isect`` reads it).
     A tile ends once every pixel's transmittance is below
     ``opts.stop_threshold`` (0: never early).
     """
@@ -208,15 +216,13 @@ def render_tiled_pallas(
     n_color = colors.shape[-1]
     aligned_gid, aligned_starts, lens, valid = align_segments(
         bins.starts, bins.sorted_gid, CHUNK)
-    isect = pack_intersections(proj, opac, colors, normal_cam, aligned_gid,
-                               valid)
-    if absgrad_sink is not None:
-        isect[:2] += absgrad_sink
+    per_gauss = pad_per_gauss(pack_per_gauss(proj, opac, normal_cam, colors))
     k_cap = opts.tile_capacity or default_tile_capacity(means.shape[0])
     max_chunks = max(-(-k_cap // CHUNK), 1)
-    packed = composite_tiles(isect, aligned_starts, lens, bins.num_tiles_x,
-                             ts, n_color, opts.near_plane,
-                             opts.stop_threshold, max_chunks)
+    packed = composite_tiles(per_gauss, aligned_gid, valid, aligned_starts,
+                             lens, bins.num_tiles_x, ts, n_color,
+                             opts.near_plane, opts.stop_threshold,
+                             max_chunks, sink=absgrad_sink)
     color = packed[..., :n_color]
     normal = packed[..., n_color:n_color + 3]
     alpha = packed[..., n_color + 3]

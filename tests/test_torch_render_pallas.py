@@ -11,7 +11,9 @@ and ``spilled`` exactly, at C = 3 and 16 colour channels; the gradients of
 the tests/test_pallas.py:87-100 loss with respect to every parameter and
 the per-intersection sink within rtol 5e-4 and atol 5e-5 * max|g|
 (tests/test_pallas.py:205-206); and ``update_state_from_isect`` on those
-sink gradients against JAX's.
+sink gradients against JAX's.  The render builds no packed
+per-intersection matrix (its compositor reads the rows through the aligned
+ids), and ``pack_intersections`` is that gather at every real slot.
 """
 
 import jax
@@ -28,6 +30,7 @@ from collab_splats_tpu_torch.core.options import RenderOptions as TOpts
 from collab_splats_tpu_torch.core.sh import sh0_to_rgb as tsh0
 from collab_splats_tpu_torch.data.synthetic import look_at_c2w
 from collab_splats_tpu_torch.ops import rasterize as trast
+from collab_splats_tpu_torch.ops.cuda import composite
 from collab_splats_tpu_torch.train import strategy as tstrategy
 from test_torch_core import both_cameras
 
@@ -187,3 +190,44 @@ def test_update_state_from_isect_matches(gradients):
     np.testing.assert_allclose(tst.max_radii.numpy(),
                                np.asarray(jst.max_radii), rtol=1e-6)
     assert float((tst.grad_accum - torch.from_numpy(init[0])).max()) > 0
+
+
+def test_render_reads_rows_through_the_ids(monkeypatch):
+    """The render composites the per-gaussian rows through the aligned ids:
+    it builds no packed per-intersection matrix."""
+    def refuse(*args):
+        raise AssertionError("render_tiled_pallas called pack_intersections")
+
+    monkeypatch.setattr(trast, "pack_intersections", refuse)
+    p, extra, K, c2w = scene(3)
+    _, tcam = both_cameras(K, c2w, SIZE, SIZE)
+    got, meta = port_render({k: torch.from_numpy(v) for k, v in p.items()},
+                            torch.from_numpy(extra), tcam, 1e-4)
+    assert float(got.alpha.mean()) > 0.5
+    assert meta.aligned_gid is not None
+
+
+@pytest.mark.parametrize("n_color", [3, 16])
+def test_pack_intersections_is_the_gather(n_color):
+    """``pack_intersections``' matrix is the compositor's gather of the
+    padded per-gaussian rows at every real slot."""
+    rng = np.random.default_rng(n_color)
+    n, m = 50, 700
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    proj = trast.Projection(mean2d=t(n, 2), depth=t(n), conic=t(n, 3),
+                            radius=t(n), compensation=t(n), plane=t(n, 2),
+                            normal=t(n, 3), valid=torch.ones(n, dtype=bool),
+                            radius_xy=t(n, 2))
+    opac, colors, normal = t(n), t(n, n_color), t(n, 3)
+    gid = torch.from_numpy(rng.integers(0, n, m).astype(np.int32))
+    valid = torch.from_numpy(rng.uniform(size=m) < 0.8)
+    packed = trast.pack_intersections(proj, opac, colors, normal, gid, valid)
+    per_gauss = trast.pad_per_gauss(
+        trast.pack_per_gauss(proj, opac, normal, colors))
+    gathered = composite.gather_slots(per_gauss, gid)
+    assert packed.shape == gathered.shape == (
+        composite.row_width(n_color), m)
+    assert torch.equal(packed[:, valid], gathered[:, valid])
