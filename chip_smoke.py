@@ -8,7 +8,8 @@ the four compositing kernels also on the seeded edge cases of
 ``data/compositing_cases.py``; the decode also on the skewed plans of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
-``backend="pallas"`` render against the ``"xla"`` render.  Then it drives the port's four main paths:
+``backend="pallas"`` render against the ``"xla"`` render.  Then it drives
+the port's six main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -21,7 +22,19 @@ stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 3. the render of both scenes with ``RenderOptions(backend="pallas")``;
 4. the training step with ``backend="pallas"`` at the bench scene's width:
    fourteen steps with the reset, the depth-normal loss and a refine pass
-   reading ``update_state_from_isect``, and a repeated step.
+   reading ``update_state_from_isect``, and a repeated step;
+5. rade-features training (``get_method("rade-features")``: 13 latents,
+   the decoder, clip-vit 768 and dinov2 384 feature maps at 64x36) on the
+   bench scene at 1280x720 with ``backend="xla"``: twenty steps with the
+   reset, the depth-normal loss and a refine pass, every kernel held
+   against its plain version on a step's own inputs (kernels 2 and 3 at
+   V = 19, kernel 4 at D = 28 and 2), a falling feature loss and a
+   repeated step; a checkpoint at step 12 through ``checkpoint_fn``, from
+   which a fresh trainer resumes and must reach step 20 with the same bits;
+6. the same with ``backend="pallas"`` (kernels 5 and 6 at C = 16, kernel 4
+   at D = 32 and 2) for fourteen steps; then six steps of progressive
+   resolution (factors 4, 2, 1: camera, box-filtered ground truth and
+   launches at each).
 
 It checks what comes out, the kernels each path launches, and prints
 per-layer and per-kernel timings (the segment sum at the expand_rows
@@ -44,10 +57,13 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -56,10 +72,12 @@ from collab_splats_tpu_torch.core.options import RenderOptions
 from collab_splats_tpu_torch.core.projection import project_gaussians
 from collab_splats_tpu_torch.data import (compositing_cases, decode_plans,
                                           synthetic)
-from collab_splats_tpu_torch.models import gaussians, rade_gs
+from collab_splats_tpu_torch.features import decoder as decoder_lib
+from collab_splats_tpu_torch.models import gaussians, rade_features, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
                                               composite, segsum_kernel)
+from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -1178,7 +1196,19 @@ def training_setup(dev, backend="xla", refine_every=REFINE_EVERY,
         images = [rade_gs.get_outputs(params, alive, c, 3, model,
                                       training=False)[0]["rgb"]
                   for c in cams]
-    n = alive.shape[0]
+    init, alive = perturbed_init(params, dev)
+    conf = TrainerConfig(
+        model=model, max_iterations=1000, seed=0,
+        strategy=strategy.StrategyConfig(warmup_length=4,
+                                         refine_every=refine_every))
+    return Trainer(conf, cams, images, init, alive, device=dev)
+
+
+def perturbed_init(params, dev):
+    """The training start of the bench training scene: a perturbed copy of
+    the ground truth ``params`` (means, colours; 5% of the rows five times
+    larger and 5% faint), padded to 2^18 rows more, and its alive mask."""
+    n = params["means"].shape[0]
     gen = torch.Generator(device=dev).manual_seed(3)
     init = dict(params)
     init["means"] = params["means"] + 0.002 * torch.randn(
@@ -1193,13 +1223,254 @@ def training_setup(dev, backend="xla", refine_every=REFINE_EVERY,
                                      math.log(0.05 / 0.95)),
         params["opacities"])
     cap = n + (1 << 18)
-    init = gaussians.pad_to_capacity(init, cap)
-    conf = TrainerConfig(
-        model=model, max_iterations=1000, seed=0,
-        strategy=strategy.StrategyConfig(warmup_length=4,
-                                         refine_every=refine_every))
-    return Trainer(conf, cams, images, init,
-                   torch.arange(cap, device=dev) < n, device=dev)
+    return (gaussians.pad_to_capacity(init, cap),
+            torch.arange(cap, device=dev) < n)
+
+
+# ------------------------------------------------- rade-features training
+# The feature extractors' widths (CLIP ViT 768, DINOv2 384) at the feature
+# datamanager's 64-pixel long edge of a 1280x720 capture.
+FEATURE_DIMS = (("clip-vit", (768, 36, 64)), ("dinov2", (384, 36, 64)))
+SAVE_AT = 12         # path 5 saves here; the resumed run crosses the refine
+PROG_STEPS = 6       # progressive resolution: factors 4, 4, 2, 2, 1, 1
+PROG_SCHEDULE = 2
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+
+class FeatureData(NamedTuple):
+    cams: list
+    images: list
+    feats: list      # per camera {branch: [C, 36, 64]}
+    init: dict       # the training start, zero latents
+    alive: torch.Tensor
+    render: RenderOptions
+
+
+def feature_data(dev, **scene):
+    """The rade-features ground truth of the bench scene (sh_degree 0):
+    each Gaussian carries 13 seeded latents; a camera's images are the
+    scene's renders, its feature maps the rendered latents resized to
+    36x64 and taken through a fixed seeded linear map per branch, so
+    the decoder and the latents can learn them.  Training starts from the
+    perturbed copy of the bench training scene with zero latents."""
+    params, alive, cams, cfg = make_scene("bench", dev, **scene)
+    n = alive.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    gt = dict(params, distill_features=torch.rand(
+        (n, 13), generator=gen, device=dev))
+    maps = {name: torch.randn((13, c), generator=gen, device=dev)
+            / math.sqrt(13) for name, (c, _, _) in FEATURE_DIMS}
+    model = rade_features.RadeFeaturesConfig(background="black",
+                                             render=cfg.render)
+    images, feats = [], []
+    with torch.no_grad():
+        for c in cams:
+            out, _ = rade_gs.get_outputs(gt, alive, c, 0, model,
+                                         training=False)
+            images.append(out["rgb"])
+            lat = decoder_lib.resize_bilinear(out["features"], (36, 64))
+            feats.append({name: (lat @ m).permute(2, 0, 1).contiguous()
+                          for name, m in maps.items()})
+    init, train_alive = perturbed_init(params, dev)
+    init["distill_features"] = torch.zeros(
+        (train_alive.shape[0], 13), device=dev)
+    return FeatureData(cams, images, feats, init, train_alive, cfg.render)
+
+
+def feature_trainer(data, dev, backend="xla", refine_every=REFINE_EVERY,
+                    reg_from=REG_FROM, checkpoint_fn=None, **trainer_kw):
+    """A rade-features trainer as a user builds one:
+    ``get_method("rade-features").make_trainer_config`` with its defaults
+    (latent 13, hidden 64, sh_degree 0) at the bench scene's render options
+    and ``num_downscales=0`` (or ``trainer_kw``), the method's groups, and
+    a decoder drawn from a fixed seed."""
+    spec = get_method("rade-features")
+    base = spec.make_trainer_config(feature_dims=FEATURE_DIMS,
+                                    rasterize_mode="antialiased")
+    model = dataclasses.replace(
+        base.model, background="random", regularization_from_iter=reg_from,
+        render=dataclasses.replace(data.render, backend=backend))
+    conf = dataclasses.replace(base, **{
+        "model": model, "max_iterations": 1000, "seed": 0,
+        "num_downscales": 0, "steps_per_save": SAVE_AT,
+        "strategy": strategy.StrategyConfig(warmup_length=4,
+                                            refine_every=refine_every),
+        **trainer_kw})
+    decoder = decoder_lib.TwoLayerDecoder(
+        model.latent_dim, model.mlp_hidden_dim, model.feature_dims_dict(),
+        generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    return Trainer(conf, data.cams, data.images, data.init, data.alive,
+                   groups=spec.groups, checkpoint_fn=checkpoint_fn,
+                   features=data.feats, decoder=decoder, device=dev)
+
+
+class Saver:
+    """A ``checkpoint_fn`` that saves through ``Trainer.save`` and keeps
+    each checkpoint's path and host seconds."""
+
+    def __init__(self, directory):
+        self.directory, self.paths, self.seconds = directory, [], []
+
+    def __call__(self, tr):
+        t0 = time.perf_counter()
+        self.paths.append(tr.save(self.directory))
+        self.seconds.append(time.perf_counter() - t0)
+
+
+@torch.no_grad()
+def check_step_kernels(kin, pallas, what, stop):
+    """Every kernel of one train step against its plain version on the
+    step's own inputs, captured by ``train_layer_times``: the decode
+    (bit-exact); kernels 2 and 3 (``"xla"``) or 5 and 6 (``"pallas"``),
+    each backward on the loss's cotangent; and kernel 4 on every segment
+    sum of the backward and of the statistics, bit-identical.  Returns
+    the max abs errors."""
+    errs = {"decode": check_decode(None, kin["decode_args"])}
+    if pallas:
+        errs["composite_tiles_bwd"] = check_tiles_bwd(kin["bwd_args"], what)
+        errs["composite_tiles"], nch, _ = check_tiles_fwd(kin["tiles"], stop)
+        if not torch.equal(nch, kin["nchunks"]):
+            raise AssertionError(f"{what}: composite_tiles nchunks differ "
+                                 "from the step's")
+        ti = kin["tiles"]
+        width = f"C={ti.n_color} (Dp={ti.per_gauss.shape[1]})"
+    else:
+        g, mask, ntx = kin["fwd_args"][:3]
+        errs["composite"], _ = check_composite(g, mask, ntx)
+        errs["composite_bwd"] = check_composite_bwd_args(kin["bwd_args"],
+                                                         what)
+        width = f"V={g.shape[2] - 9}"
+    dims = []
+    for args in kin["step_segsum_args"]:
+        check_segsum_rows(*args, f"{what} D={args[2].shape[1]}")
+        dims.append(int(args[2].shape[1]))
+    errs["segment_sum"] = 0.0
+    say(f"parity {what} (step inputs, {width}): decode bit-exact; "
+        + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items()
+                    if k not in ("decode", "segment_sum"))
+        + f"; segment_sum bit-identical at D={dims} (M="
+        f"{[int(a[2].shape[0]) for a in kin['step_segsum_args']]}), repeats "
+        f"bit-identical")
+    return errs
+
+
+def check_features_falling(hist, what):
+    """The feature loss of the path's last four steps below that of its
+    first four (the camera changes from step to step)."""
+    f = [h["features_loss"] for h in hist]
+    first, last = statistics.mean(f[:4]), statistics.mean(f[-4:])
+    say(f"{what}: features_loss " + ", ".join(f"{x:.6f}" for x in f)
+        + f"; mean of the first four {first:.6f}, of the last four "
+        f"{last:.6f}")
+    if not last < first:
+        raise AssertionError(f"{what}: features_loss did not fall")
+
+
+def same_state(a, b):
+    """The names of what differs between two ``Trainer.state()``s, bit for
+    bit: parameters, decoder, alive mask, statistics, step, Adam state and
+    rates."""
+    bad = [f"param {k}" for k in a["params"]
+           if not torch.equal(a["params"][k], b["params"][k])]
+    bad += [f"decoder {k}" for k in (a["decoder"] or {})
+            if not torch.equal(a["decoder"][k], b["decoder"][k])]
+    if not torch.equal(a["alive"], b["alive"]):
+        bad.append("alive")
+    bad += [f"statistic {k}" for k, x, y in zip(
+        strategy.StrategyState._fields, a["strat_state"], b["strat_state"])
+        if not torch.equal(x, y)]
+    if a["step"] != b["step"]:
+        bad.append("step")
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    if sa.keys() != sb.keys():
+        bad.append("Adam state keys")
+    else:
+        bad += [f"Adam {i} {k}" for i in sa for k in sa[i]
+                if not torch.equal(sa[i][k], sb[i][k])]
+    if [g["lr"] for g in a["optimizer"]["param_groups"]] != \
+            [g["lr"] for g in b["optimizer"]["param_groups"]]:
+        bad.append("rates")
+    return bad
+
+
+def kill_and_resume(data, dev, path, final, steps, refine_at):
+    """A fresh trainer restores the checkpoint at ``path`` (path 5's save
+    at step SAVE_AT) and trains to ``steps``, across the refine pass; its
+    state must be the bits of ``final``, path 5's state at that step."""
+    tr = feature_trainer(data, dev)
+    t0 = time.perf_counter()
+    tr.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if tr.step != SAVE_AT:
+        raise AssertionError(f"restore: step {tr.step}, expected {SAVE_AT}")
+    hist, _, _ = train_main_path(tr, steps - SAVE_AT, refine_at)
+    bad = same_state(tr.state(), final)
+    if bad:
+        raise AssertionError(f"kill and resume: differs from the run that "
+                             f"was not killed in {bad}")
+    r = hist[refine_at - SAVE_AT - 1]
+    say(f"kill and resume: a fresh trainer restored {path.name} in "
+        f"{restore_s:.2f} s and trained steps {SAVE_AT + 1}-{steps} (the "
+        f"refine after step {refine_at}: dup {r['refine_dup']}, split "
+        f"{r['refine_split']}, capacity {tr.alive.shape[0]}): parameters "
+        f"({len(final['params'])} tensors), decoder, alive mask, Adam state, "
+        f"rates, statistics and step bit-identical to the run that was not "
+        f"killed")
+    del tr
+
+
+def progressive_phase(data, dev):
+    """PROG_STEPS steps at num_downscales=2 and resolution_schedule
+    PROG_SCHEDULE (factors 4, 4, 2, 2, 1, 1): each step's camera and
+    box-filtered ground truth at 1/factor of 1280x720, and each kernel's
+    launches in each step, with the counts at 0 just before it."""
+    tr = feature_trainer(data, dev, refine_every=10 ** 6, reg_from=0,
+                         num_downscales=2,
+                         resolution_schedule=PROG_SCHEDULE)
+    full = tr.cameras[0]
+    per_step = {"decode": 1, "composite": 1, "composite_bwd": 1,
+                "segment_sum": 2}
+    total = dict.fromkeys(counts(), 0)
+    rows, factors = [], []
+    for _ in range(PROG_STEPS):
+        d = tr.downscale_factor()
+        factors.append(d)
+        reset_counts()
+        with captured(rade_features, "get_loss") as seen:
+            m = tr.train_one_step()
+        torch.cuda.synchronize()
+        launches = counts()
+        if launches != {k: per_step.get(k, 0) for k in launches}:
+            raise AssertionError(f"progressive factor {d}: launches "
+                                 f"{launches}")
+        outputs, image = seen[0][0], seen[0][1]
+        want = (full.height // d, full.width // d)
+        cam = full.downscaled(d)
+        if (cam.height, cam.width) != want or \
+                tuple(outputs["rgb"].shape[:2]) != want or \
+                tuple(image.shape) != want + (3,):
+            raise AssertionError(f"progressive factor {d}: camera "
+                                 f"{cam.width}x{cam.height}, render "
+                                 f"{tuple(outputs['rgb'].shape)}, ground "
+                                 f"truth {tuple(image.shape)}")
+        if not math.isfinite(m["loss"]) or m["nonfinite_grad"]:
+            raise AssertionError(f"progressive factor {d}: {m}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        rows.append(f"factor {d}: {want[1]}x{want[0]}, ground truth "
+                    f"{tuple(image.shape)}, launches "
+                    f"{ {k: v for k, v in launches.items() if v} }")
+    if factors != [4, 4, 2, 2, 1, 1]:
+        raise AssertionError(f"progressive factors {factors}")
+    say(f"progressive resolution (num_downscales=2, resolution_schedule="
+        f"{PROG_SCHEDULE}): " + "; ".join(rows))
+    ev = tr.eval_image(full, data.images[0])
+    say(f"progressive resolution: evaluation at full resolution "
+        f"{full.width}x{full.height}, PSNR {ev['psnr']:.2f} dB")
+    del tr
+    return total
+
+
 
 
 def counts():
@@ -1217,10 +1488,10 @@ def reset_counts():
 
 
 def train_main_path(tr, steps, refine_at):
-    """A training main path: ``steps`` steps with every launch count at 0
-    just before and read just after; the opacity reset after step
-    refine_every, the refine pass after step ``refine_at``.  Returns
-    (history, host ms per step, launches)."""
+    """A training main path: ``steps`` steps through ``Trainer.train``
+    with every launch count at 0 just before and read just after; the
+    opacity reset after step refine_every, the refine pass after step
+    ``refine_at``.  Returns (history, host ms per step, launches)."""
     scfg = tr.config.strategy
     reset_at = scfg.refine_every
     logit_cap = math.log(0.2 / 0.8)
@@ -1239,7 +1510,8 @@ def train_main_path(tr, steps, refine_at):
                 dataclasses.replace(scfg, densify_grad_thresh=thresh)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hist.append(tr.train_one_step())
+        tr.train(1, log_every=10 ** 9)   # runs checkpoint_fn, if any
+        hist.append(tr.history[-1])
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         if tr.step == reset_at:
@@ -1280,7 +1552,8 @@ def check_determinism(tr):
         s = tr.state()
         moments = [v for st in s["optimizer"]["state"].values()
                    for k, v in sorted(st.items()) if k != "step"]
-        return [*s["params"].values(), *s["strat_state"], *moments]
+        return [*s["params"].values(), *(s["decoder"] or {}).values(),
+                *s["strat_state"], *moments]
 
     a = run()
     tr.load_state(snap)
@@ -1357,9 +1630,9 @@ def captured(module, name):
     and the loss's cotangent)."""
     seen, real = [], getattr(module, name)
 
-    def call(*args):
+    def call(*args, **kwargs):
         seen.append(args)
-        return real(*args)
+        return real(*args, **kwargs)
 
     setattr(module, name, call)
     try:
@@ -1370,13 +1643,19 @@ def captured(module, name):
 
 def train_layer_times(tr):
     """Card time of each layer of one train step on camera 0 (median of
-    REPS CUDA-event timings), and the backward kernels' inputs at the
-    step's shapes, for the trainer's compositor."""
+    REPS CUDA-event timings), and the kernels' inputs at the step's
+    shapes, for the trainer's compositor: the decode's and the compositing
+    forward's arguments, the backward's (with the loss's cotangent), and
+    every segment sum of the backward and of the statistics.  With
+    features the loss is rade-features' and the decoder's tensors are
+    leaves too."""
     cfg = tr.config.model
     pallas = cfg.render.backend == "pallas"
+    feats = tr.features is not None
     params, alive, cam, image = tr.params, tr.alive, tr.cameras[0], \
         tr.images[0]
-    leaves = list(params.values())
+    dparams = list(tr.decoder.parameters()) if feats else []
+    leaves = list(params.values()) + dparams
     sink = torch.zeros(sink_shape(cam, alive.shape[0], cfg.render),
                        device=cam.K.device, requires_grad=True)
 
@@ -1386,17 +1665,27 @@ def train_layer_times(tr):
             generator=torch.Generator().manual_seed(0), training=True,
             compute_error_maps=True, absgrad_sink=sink)
 
-    outputs, meta = forward()
+    fwd_module, fwd_name = ((composite, "composite_tiles_fwd") if pallas
+                            else (batched, "composite_batched_fwd"))
+    with captured(fwd_module, fwd_name) as fwd_seen, \
+            captured(tiles, "decode_bin_keys") as decode_seen:
+        outputs, meta = forward()
 
     def loss_fn():
+        if feats:
+            return rade_features.get_loss(
+                outputs, image, tr.features[0], params, tr.decoder, alive,
+                tr.step, cfg, reg_active=True)[0]
         return rade_gs.get_loss(outputs, image, params, alive, tr.step, cfg,
                                 reg_active=True)[0]
 
     loss = loss_fn()
     bwd_module, bwd_name = ((composite, "composite_tiles_bwd_call") if pallas
                             else (batched, "composite_batched_bwd"))
-    with captured(bwd_module, bwd_name) as seen:
-        grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True)
+    with captured(bwd_module, bwd_name) as seen, \
+            captured(segsum, "segment_sum_sorted") as seg_seen:
+        grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True,
+                                    allow_unused=True)
     if len(seen) != 1:
         raise AssertionError(f"train step: {len(seen)} {bwd_name} calls in "
                              "a backward")
@@ -1409,10 +1698,20 @@ def train_layer_times(tr):
         **{f"forward: {k}": v for k, v in (
             pallas_layer_times if pallas else layer_times)(
                 params, alive, cam, cfg, tr.step).items()},
+    }
+    if feats:
+        out["decode and resize"] = median_ms(
+            lambda: decoder_lib.decode_rendered_features(
+                tr.decoder, outputs["features"], cfg.feature_dims_dict(),
+                cfg.main_feature_name))
+        out["feature loss (decode, resize, cosine)"] = median_ms(
+            lambda: rade_features.feature_loss(outputs, tr.features[0],
+                                               tr.decoder, cfg))
+    out.update({
         "loss": median_ms(loss_fn),
         "backward (autograd.grad)": median_ms(lambda: torch.autograd.grad(
-            loss, leaves + [sink], retain_graph=True)),
-    }
+            loss, leaves + [sink], retain_graph=True, allow_unused=True)),
+    })
     # The kernels of the backward, alone, on the step's inputs.
     n = alive.shape[0]
     bwd = "composite_tiles_bwd kernel" if pallas else "composite_bwd kernel"
@@ -1438,6 +1737,8 @@ def train_layer_times(tr):
                                    - out["segment_sum kernel"])
     out[f"statistics ({update.__name__})"] = median_ms(
         lambda: update(tr.strat_state, meta, grads[-1]))
+    with captured(segsum, "segment_sum_sorted") as stat_seen:
+        update(tr.strat_state, meta, grads[-1])
     # The statistic's D = 2 rows: this backward's masked |sink gradient|,
     # on the same sorted ids.
     valid = meta.aligned_valid if pallas else meta.bins.tile_mask.reshape(-1)
@@ -1448,10 +1749,96 @@ def train_layer_times(tr):
     kernels["segsum2_args"] = (sorted_ids, order, rows2, n)
     for p, gr in zip(leaves, grads):
         p.grad = gr
-    out["Adam"] = median_ms(tr.optimizer.step)   # moves the parameters
+    out["Adam" + (" (with the decoder group)" if feats else "")] = median_ms(
+        tr.optimizer.step)   # moves the parameters
     tr.optimizer.zero_grad(set_to_none=True)
-    kernels.update(segsum_args=(sorted_ids, order, rows, n), idx=idx)
+    kernels.update(segsum_args=(sorted_ids, order, rows, n), idx=idx,
+                   fwd_args=detached(fwd_seen[0]),
+                   decode_args=detached(decode_seen[0]),
+                   step_segsum_args=detached([*seg_seen, *stat_seen]))
     return out, kernels
+
+
+def detached(x):
+    """``x`` (tensors, named tuples, tuples and lists of them) with every
+    tensor detached from the autograd graph."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(detached(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(detached(v) for v in x)
+    return x
+
+
+def feature_step_path(data, dev, backend):
+    """Main path 5 (``"xla"``) or 6 (``"pallas"``): the rade-features
+    trainer's layers and every kernel on a step's own inputs (on its first
+    state, put back afterwards), then its steps with the depth-normal loss,
+    one opacity reset and one refine pass, a falling feature loss and a
+    bit-identical repeated step.  Path 5 saves at step SAVE_AT through
+    ``checkpoint_fn`` and is killed and resumed from that save.  Returns
+    the layer times, the kernels' step inputs and errors, and the
+    launches."""
+    pallas = backend == "pallas"
+    steps, reg_from, every = ((PALLAS_STEPS, PALLAS_REG_FROM,
+                               PALLAS_REFINE_EVERY) if pallas
+                              else (TRAIN_STEPS, REG_FROM, REFINE_EVERY))
+    refine_at = PALLAS_REFINE_AT if pallas else 2 * REFINE_EVERY
+    saver = None if pallas else Saver(CKPT_DIR)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tr = feature_trainer(data, dev, backend, every, reg_from,
+                         checkpoint_fn=saver)
+    start = tr.state()
+    layers, kin = train_layer_times(tr)
+    tr.load_state(start)
+    del start
+    what = f"rade-features {backend} step"
+    errs = check_step_kernels(kin, pallas, what,
+                              tr.config.model.render.stop_threshold)
+    hist, step_ms, launches = train_main_path(tr, steps, refine_at)
+    check_training(hist, launches, refine_at, reg_from, {
+        "decode": 1, "segment_sum": 2,
+        **({"composite_tiles": 1, "composite_tiles_bwd": 1} if pallas
+           else {"composite": 1, "composite_bwd": 1})})
+    path = 6 if pallas else 5
+    say(f"main path {path} (rade-features training, {backend}): "
+        f"{len(hist)} steps of the bench scene (1M Gaussians, 1280x720, "
+        f"latent 13, clip-vit 768 and dinov2 384 at 64x36), launches "
+        f"{launches}; losses " + ", ".join(f"{h['loss']:.5f}" for h in hist)
+        + f"; PSNR {hist[0]['psnr']:.2f} -> {hist[-1]['psnr']:.2f} dB")
+    r = hist[refine_at - 1]
+    say(f"refine (rade-features, {backend}) after step {refine_at}: dup "
+        f"{r['refine_dup']}, split {r['refine_split']}, cull "
+        f"{r['refine_cull']}, dropped {r['refine_dropped']}; Gaussians "
+        f"{r['num_gaussians']} -> {hist[-1]['num_gaussians']}, capacity "
+        f"{tr.alive.shape[0]}; opacity reset after step {every}; "
+        f"depth-normal loss from step {reg_from}")
+    check_features_falling(hist, f"main path {path}")
+    ckpt_steps = [] if pallas else [SAVE_AT - 1]
+    other = [t for i, t in enumerate(step_ms) if i not in ckpt_steps]
+    say(f"feature train step ({backend}, host clock, bench scene): median "
+        f"{statistics.median(other):.4f} ms over {len(other)} steps "
+        f"without a save, min {min(other):.4f}, max {max(other):.4f}"
+        + ("" if pallas else
+           f"; the step that saved took {step_ms[SAVE_AT - 1]:.4f} ms, the "
+           f"save {1e3 * saver.seconds[0]:.1f} ms ({saver.paths[0].name}, "
+           f"{saver.paths[0].stat().st_size / 2 ** 20:.1f} MiB)"))
+    final = tr.state()
+    check_determinism(tr)
+    del tr
+    torch.cuda.empty_cache()
+    if not pallas:
+        kill_and_resume(data, dev, saver.paths[0], final, steps, refine_at)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del final
+    torch.cuda.empty_cache()
+    return {"layers": layers, "kin": kin, "errs": errs,
+            "launches": launches}
+
+
+def per_element(what, ms, elements):
+    return f"{what} {ms:.4f} ms, {1e6 * ms / elements:.4f} ns per element"
 
 
 def main() -> int:
@@ -1633,6 +2020,50 @@ def main() -> int:
     del tr, start
     torch.cuda.empty_cache()
 
+    # Main paths 5 and 6, rade-features training with each compositor,
+    # path 5 killed and resumed; then progressive resolution.
+    fdata = feature_data(dev)
+    fx = feature_step_path(fdata, dev, "xla")
+    fp = feature_step_path(fdata, dev, "pallas")
+    prog_launches = progressive_phase(fdata, dev)
+    del fdata
+    torch.cuda.empty_cache()
+    for backend, f in (("xla", fx), ("pallas", fp)):
+        say(f"layers of the rade-features {backend} train step, bench scene "
+            f"camera 0 (median of {REPS}, ms): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in f["layers"].items()))
+    # Per element of the kernels' rows, the feature steps' widths against
+    # the RaDe-GS steps' (V = 6, C = 3, D = 15).
+    elems = []
+    for label, kk, lay in (("RaDe-GS", kin, tlayers),
+                           ("rade-features", fx["kin"], fx["layers"])):
+        g, mask, ntx = kk["fwd_args"][:3]
+        t, k, d = g.shape
+        m, dseg = kk["segsum_args"][2].shape
+        elems.append(f"{label} V={d - 9}: " + "; ".join([
+            per_element("kernel 2", median_ms(
+                lambda: batched.composite_batched_fwd(g, mask, ntx, TS,
+                                                      NEAR)), t * k * d),
+            per_element("kernel 3", lay["composite_bwd kernel"], t * k * d),
+            per_element(f"kernel 4 at D={dseg}", lay["segment_sum kernel"],
+                        m * dseg)]))
+    stop = RenderOptions().stop_threshold
+    for label, kk, lay in (("RaDe-GS", pkin, player),
+                           ("rade-features", fp["kin"], fp["layers"])):
+        ti, nch = kk["tiles"], kk["nchunks"]
+        slots = walked_slots(ti, nch) * ti.per_gauss.shape[1]
+        m, dseg = kk["segsum_args"][2].shape
+        elems.append(f"{label} C={ti.n_color}: " + "; ".join([
+            per_element("kernel 5", median_ms(
+                lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
+                slots),
+            per_element("kernel 6", lay["composite_tiles_bwd kernel"], slots),
+            per_element(f"kernel 4 at D={dseg}", lay["segment_sum kernel"],
+                        m * dseg)]))
+    say("kernels per element of their rows on the train steps' own inputs "
+        "(median of 10; rows T*K*(9+V), walked slots * Dp, M*D): "
+        + " | ".join(elems))
+
     records = {}
     for name, (params, alive, cams, cfg) in scenes.items():
         plan, g, mask, ntx, errs = inputs[name]
@@ -1794,11 +2225,18 @@ def main() -> int:
         f"rows, {100 * share:.4f}% of the rows in segments over "
         f"{segsum_kernel.LONG_ROWS}")
 
-    # The kernels line, at the bench scene's shapes (the full-size paths);
-    # launches from the training main paths: kernels 1-4 from path 2,
-    # kernels 5 and 6 from path 4.
-    launches.update({k: plaunches[k] for k in ("composite_tiles",
-                                               "composite_tiles_bwd")})
+    # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
+    # launches summed over the training main paths.
+    path_launches = {"path 2 (xla)": launches, "path 4 (pallas)": plaunches,
+                     "path 5 (rade-features, xla)": fx["launches"],
+                     "path 6 (rade-features, pallas)": fp["launches"],
+                     "progressive resolution": prog_launches}
+    say("launches per training main path: " + "; ".join(
+        f"{k}: { {n: v for n, v in p.items() if v} }"
+        for k, p in path_launches.items()))
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in launches}
+    feature_errs = [fx["errs"], fp["errs"]]
     kernels = []
     for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",
@@ -1821,6 +2259,7 @@ def main() -> int:
             "max_abs_err": (max(seg_err, *seg_errs) if key == "segment_sum"
                             else max(step_errs.get(key, 0.0),
                                      edge_errs.get(key, 0.0),
+                                     *(e.get(key, 0.0) for e in feature_errs),
                                      *(r["errs"][key]
                                        for r in records.values()))),
             "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],

@@ -55,6 +55,17 @@ class Camera:
         """Camera position in world coordinates, [3]."""
         return self.c2w[:3, 3]
 
+    def downscaled(self, factor: int) -> "Camera":
+        """The camera at 1/``factor`` of the resolution: floor-division
+        sizes (so an image box-filtered by ``factor`` and the camera agree
+        for odd sizes too), the first two rows of K scaled."""
+        if factor <= 1:
+            return self
+        K = self.K.clone()
+        K[:2] *= 1.0 / factor
+        return dataclasses.replace(self, K=K, width=self.width // factor,
+                                   height=self.height // factor)
+
 
 def make_camera(fx: float, fy: float, cx: float, cy: float, width: int,
                 height: int, c2w, device=None) -> Camera:

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``train/losses.py``:
 * RGB loss = (1 - ssim_lambda) * L1 + ssim_lambda * (1 - SSIM);
 * depth-normal consistency: lambda * [(1 - r) mean(E_depth) + r
   mean(E_middepth)];
-* scale regularization: a penalty on anisotropy beyond ``max_gauss_ratio``.
+* scale regularization: a penalty on anisotropy beyond ``max_gauss_ratio``;
+* rade-features' cosine distillation of decoded feature maps.
 
 SSIM filters with a separable 11-tap Gaussian as two depthwise
 ``conv2d(groups=C)`` passes; the JAX package's two filter variants
@@ -91,3 +92,13 @@ def scale_regularization(log_scales: torch.Tensor, alive: torch.Tensor,
     pen = torch.clamp(ratio, min=max_gauss_ratio) - max_gauss_ratio
     denom = torch.clamp(torch.sum(alive), min=1.0)
     return 0.1 * torch.sum(pen * alive) / denom
+
+
+def cosine_distillation_loss(pred: torch.Tensor,
+                             gt: torch.Tensor) -> torch.Tensor:
+    """Mean (1 - cosine similarity) over the channel axis 0 of [C, H, W]
+    maps, with 1e-16 inside each norm's square root."""
+    num = torch.sum(pred * gt, dim=0)
+    den = torch.sqrt(torch.sum(pred * pred, dim=0) + 1e-16) \
+        * torch.sqrt(torch.sum(gt * gt, dim=0) + 1e-16)
+    return torch.mean(1.0 - num / den)

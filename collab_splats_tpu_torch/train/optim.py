@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``train/optim.py``: one Adam(eps=1e-15)
 per parameter group with nerfstudio's exponential-decay schedules.  Here it
 is one ``torch.optim.Adam`` with one param group per parameter key (the
-group carries the key as ``"name"``) and a ``LambdaLR`` that scales each
+group carries the key as ``"name"``; the rade-features ``"decoder"`` group
+holds every tensor of the decoder) and a ``LambdaLR`` that scales each
 group's rate by its schedule.  optax's schedule counts from 0 at the first
 update, and so does ``LambdaLR``.  optax divides by ``sqrt(nu / (1 -
 b2^t)) + eps`` where torch divides by ``sqrt(nu) / sqrt(1 - b2^t) + eps``:
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -39,6 +40,12 @@ RADE_GS_GROUPS: Dict[str, GroupSpec] = {
     "quats": GroupSpec(lr=1e-3),
 }
 
+RADE_FEATURES_GROUPS: Dict[str, GroupSpec] = {
+    **RADE_GS_GROUPS,
+    "distill_features": GroupSpec(lr=2.5e-3, lr_final=5e-4, max_steps=10000),
+    "decoder": GroupSpec(lr=1e-3),
+}
+
 
 def nerfstudio_exponential_decay(spec: GroupSpec) -> Callable[[int], float]:
     """nerfstudio ExponentialDecayScheduler: sine warmup from
@@ -60,13 +67,16 @@ def nerfstudio_exponential_decay(spec: GroupSpec) -> Callable[[int], float]:
     return schedule
 
 
-def make_optimizer(params: Dict[str, torch.Tensor],
-                   groups: Dict[str, GroupSpec]):
-    """(Adam, LambdaLR) over the leaf tensors ``params``: one group per key,
-    each with its own rate, schedule and eps."""
+def make_optimizer(
+        params: Mapping[str, Union[torch.Tensor, Sequence[torch.Tensor]]],
+        groups: Dict[str, GroupSpec]):
+    """(Adam, LambdaLR) over the leaf tensors ``params``: one group per key
+    (a key may hold a list of tensors, as ``"decoder"`` does), each with
+    its own rate, schedule and eps."""
     names = list(params)
     opt = torch.optim.Adam(
-        [{"params": [params[k]], "lr": groups[k].lr, "eps": groups[k].eps,
+        [{"params": list(params[k]) if isinstance(params[k], (list, tuple))
+          else [params[k]], "lr": groups[k].lr, "eps": groups[k].eps,
           "name": k} for k in names],
         betas=(0.9, 0.999))
     factors = []
@@ -99,8 +109,11 @@ def graft_opt_state(optimizer: torch.optim.Optimizer,
                     new_params: Dict[str, torch.Tensor]) -> None:
     """Swap each group's parameter for its grown copy in ``new_params`` and
     carry its Adam state over: surviving rows keep their moments, new rows
-    start at zero, the step count is kept."""
+    start at zero, the step count is kept.  Groups not in ``new_params``
+    (the decoder) are left as they are."""
     for group in optimizer.param_groups:
+        if group["name"] not in new_params:
+            continue
         old = group["params"][0]
         new = new_params[group["name"]]
         group["params"][0] = new

@@ -302,9 +302,13 @@ def zero_opt_rows(optimizer: torch.optim.Optimizer,
                   written: torch.Tensor) -> None:
     """Zero the Adam moment rows of newly written Gaussians, in place, for
     every parameter whose leading dimension is the capacity; step counts
-    are kept."""
+    are kept.  The decoder group holds no Gaussian rows and is skipped,
+    whatever its shapes."""
     c = written.shape[0]
-    for state in optimizer.state.values():
+    for group in optimizer.param_groups:
+        if group["name"] == "decoder":
+            continue
+        state = optimizer.state.get(group["params"][0], {})
         for key in ("exp_avg", "exp_avg_sq"):
             x = state.get(key)
             if x is not None and x.dim() >= 1 and x.shape[0] == c:

@@ -5,15 +5,18 @@ camera, takes the loss and its backward (the rasterizer's screen-space sink
 rides the same backward), zeroes the gradients of dead capacity rows,
 skips the update when any gradient is not finite, and otherwise runs the
 per-group Adam and accumulates the densification statistics (per window
-slot, or per intersection with ``backend="pallas"``).  Around it,
-the host-side schedule of the reference: refine every ``refine_every``
-steps inside the densification window, reset opacities periodically,
-depth-normal loss from ``regularization_from_iter``, capacity growth ahead
-of densification.
+slot, or per intersection with ``backend="pallas"``).  With per-camera
+ground-truth feature maps it trains rade-features: the loss adds the
+decoded latents' cosine distillation and the decoder is one more Adam
+group.  Around the step, the host-side schedule of the reference: refine
+every ``refine_every`` steps inside the densification window, reset
+opacities periodically, depth-normal loss from
+``regularization_from_iter``, capacity growth ahead of densification,
+progressive resolution (``num_downscales``), and a checkpoint every
+``steps_per_save`` steps through ``checkpoint_fn``.
 
 Left for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): camera pose optimization, bilateral grids, rade-features
-training, progressive resolution, checkpoint save/restore.  Evaluation
+ROADMAP item): camera pose optimization and bilateral grids.  Evaluation
 reports PSNR and SSIM (no LPIPS).
 """
 
@@ -28,10 +31,12 @@ import numpy as np
 import torch
 
 from ..core.cameras import Camera
-from ..models import rade_gs
+from ..features import decoder as decoder_lib
+from ..models import rade_features, rade_gs
 from ..models.gaussians import GaussianParams, grow_capacity, num_alive
 from ..ops.rasterize import absgrad_sink_shape, pallas_sink_shape
 from ..utils.device import resolve_device
+from . import checkpoint as ckpt
 from . import losses, optim, strategy
 
 
@@ -43,6 +48,7 @@ class TrainerConfig:
     max_iterations: int = 30000
     steps_per_eval_image: int = 100
     steps_per_eval_all_images: int = 1000
+    steps_per_save: int = 2000
     model: rade_gs.RadeGSConfig = rade_gs.RadeGSConfig()
     strategy: strategy.StrategyConfig = strategy.StrategyConfig()
     scene_scale: float = 1.0
@@ -50,17 +56,16 @@ class TrainerConfig:
     seed: int = 42
     optimize_camera_poses: bool = False
     use_bilateral_grid: bool = False
+    # Progressive resolution (Splatfacto): train at 1/2^k of the resolution
+    # early, halving the factor every ``resolution_schedule`` steps.
     num_downscales: int = 0
+    resolution_schedule: int = 3000
 
     def __post_init__(self):
         if self.optimize_camera_poses or self.use_bilateral_grid:
             raise NotImplementedError(
                 "camera_opt and bilateral grids are not ported yet "
                 "(ROADMAP Queue 1 item 4)")
-        if self.num_downscales > 0:
-            raise NotImplementedError(
-                "progressive resolution is not ported yet (ROADMAP Queue 1 "
-                "item 1)")
 
 
 def _move_camera(cam: Camera, device) -> Camera:
@@ -69,7 +74,8 @@ def _move_camera(cam: Camera, device) -> Camera:
 
 
 def _image(im, device) -> torch.Tensor:
-    """A float32 [H, W, 3] image (numpy array or tensor) on ``device``."""
+    """A float32 image or feature map (numpy array or tensor) on
+    ``device``."""
     if isinstance(im, torch.Tensor):
         return im.detach().to(device, torch.float32)
     return torch.tensor(np.asarray(im, np.float32), device=device)
@@ -82,6 +88,13 @@ class Trainer:
     [C] bool mask; the trainer keeps its own leaf copies on ``device`` (the
     card by default).  Refinement, opacity reset and capacity growth update
     them in place, so the optimizer keeps its parameters.
+
+    rade-features: ``features`` holds each camera's ground-truth maps
+    {branch: [C, h, w]} (``config.model`` a ``RadeFeaturesConfig`` whose
+    ``feature_dims`` they match) and ``decoder`` the decoder, which the
+    trainer moves to ``device`` and updates in place.  ``checkpoint_fn``
+    is called with the trainer every ``steps_per_save`` steps of
+    :meth:`train` (for example ``lambda t: t.save(directory)``).
     """
 
     def __init__(
@@ -92,30 +105,47 @@ class Trainer:
         params: GaussianParams,
         alive: torch.Tensor,
         groups: Optional[Dict[str, optim.GroupSpec]] = None,
+        checkpoint_fn: Optional[Callable] = None,
         features: Optional[Sequence[Dict]] = None,
+        decoder: Optional[decoder_lib.TwoLayerDecoder] = None,
         device=None,
     ):
-        if features is not None:
-            raise NotImplementedError(
-                "rade-features training is not ported yet (ROADMAP Queue 1 "
-                "item 2)")
         if len(cameras) != len(images):
             raise ValueError(f"{len(cameras)} cameras but {len(images)} "
                              "images")
+        if (features is None) != (decoder is None):
+            raise ValueError("features and decoder come together")
         dev = resolve_device(device)
         self.device = dev
         self.config = config
         self.cameras = [_move_camera(c, dev) for c in cameras]
         self.images = [_image(im, dev) for im in images]
+        self.features = None
+        if features is not None:
+            self.features = [{k: _image(v, dev) for k, v in f.items()}
+                             for f in features]
+            _check_features(config.model, self.features, len(cameras))
+        self.decoder = decoder.to(dev) if decoder is not None else None
         self.params = {k: v.detach().to(dev, torch.float32).clone()
                        .requires_grad_(True) for k, v in params.items()}
         self.alive = alive.to(dev, torch.bool)
-        self.groups = dict(groups or optim.RADE_GS_GROUPS)
-        self.optimizer, self.scheduler = optim.make_optimizer(self.params,
-                                                              self.groups)
+        self.groups = dict(groups or (
+            optim.RADE_FEATURES_GROUPS if "distill_features" in params
+            else optim.RADE_GS_GROUPS))
+        self.optimizer, self.scheduler = optim.make_optimizer(
+            self._opt_params(), self.groups)
         self.strat_state = strategy.init_state(self.alive.shape[0], dev)
         self.step = 0
+        self.checkpoint_fn = checkpoint_fn
         self.history: List[Dict[str, float]] = []
+
+    def _opt_params(self) -> Dict:
+        """The optimizer's groups: one per parameter, and the decoder's
+        tensors as one group."""
+        out = dict(self.params)
+        if self.decoder is not None:
+            out["decoder"] = list(self.decoder.parameters())
+        return out
 
     def _generator(self, salt: int) -> torch.Generator:
         """The step's random stream ``salt`` (1: background, 2: split
@@ -127,9 +157,17 @@ class Trainer:
 
     # ----------------------------------------------------------- the step
     def _train_step(self, camera: Camera, image: torch.Tensor,
-                    reg_active: bool) -> Dict[str, torch.Tensor]:
+                    features_gt: Optional[Dict[str, torch.Tensor]],
+                    reg_active: bool,
+                    downscale: int = 1) -> Dict[str, torch.Tensor]:
         cfg = self.config.model
         params, alive = self.params, self.alive
+        if downscale > 1:
+            # ``camera`` comes downscaled (floor-division sizes); the
+            # ground truth is box-filtered to match, as Splatfacto does.
+            h, w = camera.height, camera.width
+            image = image[:h * downscale, :w * downscale].reshape(
+                h, downscale, w, downscale, -1).mean(dim=(1, 3))
         cap = alive.shape[0]
         pallas = cfg.render.backend == "pallas"
         sink_shape = pallas_sink_shape if pallas else absgrad_sink_shape
@@ -140,29 +178,43 @@ class Trainer:
             params, alive, camera, self.step, cfg,
             generator=self._generator(1), training=True,
             compute_error_maps=reg_active, absgrad_sink=sink)
-        loss, ldict = rade_gs.get_loss(outputs, image, params, alive,
-                                       self.step, cfg, reg_active=reg_active)
+        if features_gt is not None:
+            loss, ldict = rade_features.get_loss(
+                outputs, image, features_gt, params, self.decoder, alive,
+                self.step, cfg, reg_active=reg_active)
+            dparams = list(self.decoder.parameters())
+        else:
+            loss, ldict = rade_gs.get_loss(outputs, image, params, alive,
+                                           self.step, cfg,
+                                           reg_active=reg_active)
+            dparams = []
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names] + [sink],
-                                    allow_unused=True)
+        grads = torch.autograd.grad(
+            loss, [params[k] for k in names] + dparams + [sink],
+            allow_unused=True)
         sink_grad = grads[-1]
 
         # Dead rows must not move: zero their gradients exactly.
         amask = alive.to(torch.float32)
         pgrads = {}
-        for k, g in zip(names, grads[:-1]):
+        for k, g in zip(names, grads[:len(names)]):
             g = torch.zeros_like(params[k]) if g is None else g
             pgrads[k] = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
+        dgrads = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(dparams, grads[len(names):-1])]
 
         # Non-finite guard: one degenerate splat's inf/NaN gradient would
         # poison every Adam moment, so such a step is skipped (parameters,
-        # optimizer and statistics keep their values) and counted.  Taking
-        # the decision costs one host read of this flag per step.
-        finite = torch.stack([torch.isfinite(g).all()
-                              for g in [*pgrads.values(), sink_grad]]).all()
+        # decoder, optimizer and statistics keep their values) and counted.
+        # Taking the decision costs one host read of this flag per step.
+        finite = torch.stack([
+            torch.isfinite(g).all()
+            for g in [*pgrads.values(), *dgrads, sink_grad]]).all()
         if bool(finite):
             for k, g in pgrads.items():
                 params[k].grad = g
+            for p, g in zip(dparams, dgrads):
+                p.grad = g
             self.optimizer.step()
             self.scheduler.step()
             self.optimizer.zero_grad(set_to_none=True)
@@ -180,6 +232,17 @@ class Trainer:
         }
 
     # --------------------------------------------------------------- host
+    def downscale_factor(self, step: Optional[int] = None) -> int:
+        """Progressive-resolution factor at ``step`` (the trainer's step by
+        default): 2^max(num_downscales - step // resolution_schedule, 0).
+        Evaluation always renders at full resolution."""
+        cfg = self.config
+        if cfg.num_downscales <= 0:
+            return 1
+        s = self.step if step is None else step
+        return 2 ** max(
+            cfg.num_downscales - s // max(cfg.resolution_schedule, 1), 0)
+
     def train_one_step(self) -> Dict[str, float]:
         cfg = self.config
         scfg = cfg.strategy
@@ -188,8 +251,11 @@ class Trainer:
             len(self.cameras)))
         reg_active = (cfg.model.use_depth_normal_loss
                       and self.step >= cfg.model.regularization_from_iter)
-        metrics = self._train_step(self.cameras[idx], self.images[idx],
-                                   reg_active)
+        d = self.downscale_factor()
+        metrics = self._train_step(
+            self.cameras[idx].downscaled(d), self.images[idx],
+            self.features[idx] if self.features is not None else None,
+            reg_active, d)
         self.step += 1
 
         refined = {}
@@ -266,7 +332,8 @@ class Trainer:
         """Run the training loop; with eval data, one eval image every
         ``steps_per_eval_image`` steps and the full set every
         ``steps_per_eval_all_images`` (``eval_psnr`` / ``eval_all_psnr`` in
-        ``self.history``)."""
+        ``self.history``); ``checkpoint_fn`` every ``steps_per_save``
+        steps."""
         if num_steps is None:
             num_steps = self.config.max_iterations
         do_eval = eval_cameras is not None and len(eval_cameras) > 0
@@ -292,6 +359,9 @@ class Trainer:
                 log_fn(f"step {self.step:6d}  loss {m['loss']:.4f}  "
                        f"psnr {m['psnr']:.2f}  N {m['num_gaussians']}  "
                        f"{rate:.1f} it/s")
+            if self.checkpoint_fn and \
+                    self.step % self.config.steps_per_save == 0:
+                self.checkpoint_fn(self)
         return self.history
 
     @torch.no_grad()
@@ -305,11 +375,15 @@ class Trainer:
 
     # ------------------------------------------------------------- state
     def state(self) -> Dict:
-        """A copy of everything a step reads and writes: parameters,
-        optimizer and schedule, statistics, alive mask and step count.
-        :meth:`load_state` puts it back, so a step can be repeated."""
+        """A copy of everything a step reads and writes: parameters and
+        decoder, optimizer and schedule, statistics, alive mask and step
+        count.  :meth:`load_state` puts it back, so a step can be
+        repeated."""
         return {
             "params": {k: v.detach().clone() for k, v in self.params.items()},
+            "decoder": None if self.decoder is None else {
+                k: v.detach().clone() for k, v in
+                decoder_lib.decoder_tensors(self.decoder).items()},
             "optimizer": copy.deepcopy(self.optimizer.state_dict()),
             "scheduler": copy.deepcopy(self.scheduler.state_dict()),
             "strat_state": strategy.StrategyState(
@@ -324,8 +398,14 @@ class Trainer:
         optimizer's groups are pointed at them."""
         self.params = {k: v.clone().requires_grad_(True)
                        for k, v in state["params"].items()}
+        if self.decoder is not None:
+            with torch.no_grad():
+                for k, v in decoder_lib.decoder_tensors(
+                        self.decoder).items():
+                    v.copy_(state["decoder"][k])
         for group in self.optimizer.param_groups:
-            group["params"][0] = self.params[group["name"]]
+            if group["name"] in self.params:
+                group["params"][0] = self.params[group["name"]]
         # load_state_dict keeps the tensors it is given: hand it copies.
         self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
         self.scheduler.load_state_dict(copy.deepcopy(state["scheduler"]))
@@ -340,40 +420,56 @@ class Trainer:
         ``flat`` holds numpy arrays under the keys of the JAX package's
         checkpoints (``train/checkpoint.py``: ``"opt/"`` or ``"strat/"``
         followed by ``_flatten``'s key path): per group its Adam ``mu``,
-        ``nu`` and update ``count``, and ``grad_accum``, ``count`` and
-        ``max_radii``.  The schedules continue from the count.
+        ``nu`` and update ``count`` (the decoder's moments in JAX's [in,
+        out] layout), and ``grad_accum``, ``count`` and ``max_radii``.  The
+        schedules continue from the count.
         """
-        counts = set()
-        for group in self.optimizer.param_groups:
-            name = group["name"]
-            p = group["params"][0]
-            pre = f"opt/.inner_states/['{name}']/.inner_state/[0]/"
-            count = int(flat[pre + ".count"])
-            counts.add(count)
-            self.optimizer.state[p] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": torch.tensor(flat[pre + f".mu/['{name}']"],
-                                        device=self.device),
-                "exp_avg_sq": torch.tensor(flat[pre + f".nu/['{name}']"],
-                                           device=self.device),
-            }
-        if len(counts) != 1:
-            raise ValueError(f"groups disagree on the update count: {counts}")
-        count = counts.pop()
-        sched = self.scheduler
-        sched.last_epoch = count
-        sched._last_lr = [base * f(count) for base, f in
-                          zip(sched.base_lrs, sched.lr_lambdas)]
-        for group, lr in zip(self.optimizer.param_groups, sched._last_lr):
-            group["lr"] = lr
-        self.strat_state = strategy.StrategyState(*(
-            torch.tensor(flat[f"strat/.{name}"], device=self.device)
-            for name in strategy.StrategyState._fields))
+        ckpt.load_optimizer_flat(self.optimizer, self.scheduler, flat,
+                                 self.decoder)
+        self.strat_state = ckpt.strategy_from_flat(
+            flat, self.alive.shape[0], self.device)
 
-    def save(self, directory) -> None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "Queue 1 item 1: train/checkpoint.py)")
+    def save(self, directory):
+        """Write a resumable checkpoint (parameters, decoder, alive mask,
+        Adam state, statistics) to ``directory`` in the JAX package's
+        format; returns its path."""
+        return ckpt.save_checkpoint(
+            directory, self.step, self.params, self.alive,
+            decoder=self.decoder, optimizer=self.optimizer,
+            strat_state=self.strat_state,
+            metadata={"capacity": int(self.alive.shape[0])})
 
     def restore(self, path) -> None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "Queue 1 item 1: train/checkpoint.py)")
+        """Resume from a checkpoint of :meth:`save` or of the JAX
+        trainer's ``save``: parameters, decoder and alive mask exactly, the
+        Adam moments leaf by leaf where their shapes match, the update
+        count and with it the schedules' position, the statistics and the
+        step.  A kill between two saves and a resume from the last one
+        continue the run bit for bit."""
+        step, params, alive, extras = ckpt.load_checkpoint(path, self.device)
+        self.step = step
+        self.params = {k: v.to(torch.float32).requires_grad_(True)
+                       for k, v in params.items()}
+        self.alive = alive.to(torch.bool)
+        if self.decoder is not None:
+            decoder_lib.load_numpy(self.decoder, ckpt.decoder_arrays(extras))
+        self.optimizer, self.scheduler = optim.make_optimizer(
+            self._opt_params(), self.groups)
+        self.load_state_numpy(extras)
+
+
+def _check_features(model, features: List[Dict[str, torch.Tensor]],
+                    n_cameras: int) -> None:
+    """Features need a rade-features model, one map set per camera, and the
+    model's ``feature_dims`` as their branches and shapes."""
+    if not isinstance(model, rade_features.RadeFeaturesConfig):
+        raise ValueError("features need a RadeFeaturesConfig model")
+    if len(features) != n_cameras:
+        raise ValueError(f"{n_cameras} cameras but {len(features)} feature "
+                         "sets")
+    dims = model.feature_dims_dict()
+    for f in features:
+        got = {k: tuple(v.shape) for k, v in f.items()}
+        if got != {k: tuple(d) for k, d in dims.items()}:
+            raise ValueError(f"feature maps {got} do not match the model's "
+                             f"feature_dims {dims}")

@@ -146,4 +146,4 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainerConfig(optimize_camera_poses=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainerConfig(num_downscales=1)
+        TrainerConfig(use_bilateral_grid=True)
