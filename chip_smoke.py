@@ -9,7 +9,7 @@ the four compositing kernels also on the seeded edge cases of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 ``backend="pallas"`` render against the ``"xla"`` render.  Then it drives
-the port's six main paths:
+the port's seven main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -34,9 +34,21 @@ the port's six main paths:
 6. the same with ``backend="pallas"`` (kernels 5 and 6 at C = 16, kernel 4
    at D = 32 and 2) for fourteen steps; then six steps of progressive
    resolution (factors 4, 2, 1: camera, box-filtered ground truth and
-   launches at each).
+   launches at each);
+7. mesh extraction (``meshing/exporters.py``): path 5's checkpoint restored
+   with ``load_checkpoint`` and fused by ``TSDFFusionExporter`` over the
+   four bench cameras at 1280x720 (depth_trunc 6.0 for the radius-3 orbit,
+   the 13-channel feature volume on), writing splats.ply, mesh.ply and
+   mesh_features.npz; the export repeated to the same volume bits and the
+   same mesh.ply bytes; ``GaussiansToPoissonExporter`` at grid 256 on the
+   same splat, its trilinear splat's segment sums (kernel 4) bit-exact
+   against the plain version and a repeated chi field bit-identical; then
+   the TSDF exporter on a flat disk and the level-set and depth-and-normal
+   Poisson exporters on the flagship scene, card against CPU, and the
+   latter two at full size on the card, with each meshing layer's time.
 
-It checks what comes out, the kernels each path launches, and prints
+It checks what comes out, the kernels each path launches (path 7 needs
+``cpp/libmesh_repair.so``, built at first use), and prints
 per-layer and per-kernel timings (the segment sum at the expand_rows
 backward's D = 15 rows and the statistic's D = 2 rows, each beside
 ``index_add_``), with the share of (warp, slot) pairs in which each
@@ -65,7 +77,9 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from scipy.spatial import cKDTree
 
 from collab_splats_tpu_torch.core import compositing
 from collab_splats_tpu_torch.core.options import RenderOptions
@@ -73,12 +87,15 @@ from collab_splats_tpu_torch.core.projection import project_gaussians
 from collab_splats_tpu_torch.data import (compositing_cases, decode_plans,
                                           synthetic)
 from collab_splats_tpu_torch.features import decoder as decoder_lib
+from collab_splats_tpu_torch.meshing import _native as mesh_native
+from collab_splats_tpu_torch.meshing import exporters, poisson
+from collab_splats_tpu_torch.meshing import transfer as mesh_transfer
 from collab_splats_tpu_torch.models import gaussians, rade_features, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
                                               composite, segsum_kernel)
 from collab_splats_tpu_torch.pipeline.methods import get_method
-from collab_splats_tpu_torch.train import strategy
+from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
@@ -1786,7 +1803,8 @@ def feature_step_path(data, dev, backend):
                               else (TRAIN_STEPS, REG_FROM, REFINE_EVERY))
     refine_at = PALLAS_REFINE_AT if pallas else 2 * REFINE_EVERY
     saver = None if pallas else Saver(CKPT_DIR)
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if not pallas:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     tr = feature_trainer(data, dev, backend, every, reg_from,
                          checkpoint_fn=saver)
     start = tr.state()
@@ -1830,15 +1848,404 @@ def feature_step_path(data, dev, backend):
     torch.cuda.empty_cache()
     if not pallas:
         kill_and_resume(data, dev, saver.paths[0], final, steps, refine_at)
-        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     del final
     torch.cuda.empty_cache()
     return {"layers": layers, "kin": kin, "errs": errs,
-            "launches": launches}
+            "launches": launches, "ckpt": saver and saver.paths[0]}
 
 
 def per_element(what, ms, elements):
     return f"{what} {ms:.4f} ms, {1e6 * ms / elements:.4f} ns per element"
+
+
+# Main path 7, mesh extraction (meshing/exporters.py) from path 5's
+# checkpoint.  The bench cameras orbit at radius 3.0, so the exporter's
+# default depth_trunc of 1.0 would drop every depth: 6.0 keeps the scene.
+MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+MESH_DEPTH_TRUNC = 6.0
+POISSON_RES = 256
+LEVEL_SET_RES = 128      # the level-set extractor's default
+FLAGSHIP_MESH_SIZE = 512
+MESH_STAGES = ("render", "integrate", "to host", "marching", "clean repair",
+               "transfer", "floor alignment", "write ply")
+POISSON_STAGES = ("scatter", "fft solve", "to host", "marching", "colors")
+TRANSFER_SAMPLE = 256   # vertices whose transfer is held against the CPU
+
+
+def stage_line(times, names):
+    """'name total s (per call ms, ...)' for each stage that ran."""
+    out = []
+    for k in names:
+        if k in times:
+            t = times[k]
+            per = "" if len(t) == 1 else " (" + ", ".join(
+                f"{1e3 * x:.4f}" for x in t) + " ms)"
+            out.append(f"{k} {sum(t):.4f} s{per}")
+    return "; ".join(out)
+
+
+def check_mesh(res, what, latent=0):
+    """At least one face, face indices in range, finite vertices, colours
+    in [0, 1], normals of length at most 1 (each an inverse-distance
+    average of unit normals), features [V, latent]."""
+    v, f = res["vertices"], res["faces"]
+    n = len(v)
+    if len(f) == 0 or not np.isfinite(v).all():
+        raise AssertionError(f"{what}: {len(f)} faces, finite vertices "
+                             f"{bool(np.isfinite(v).all())}")
+    if f.min() < 0 or f.max() >= n:
+        raise AssertionError(f"{what}: face indices outside [0, {n})")
+    widths = {"colors": 3, "normals": 3, **({"features": latent}
+                                            if latent else {})}
+    for key, width in widths.items():
+        x = res.get(key)
+        if x is None or x.shape != (n, width) or not np.isfinite(x).all():
+            raise AssertionError(f"{what}: {key} is not finite [{n}, "
+                                 f"{width}]")
+    c = res["colors"]
+    if c.min() < 0.0 or c.max() > 1.0:
+        raise AssertionError(f"{what}: colours outside [0, 1]")
+    lengths = np.linalg.norm(res["normals"], axis=-1)
+    if lengths.max() > 1.0 + 1e-4:
+        raise AssertionError(f"{what}: a normal of length {lengths.max()}")
+    return lengths
+
+
+def hold_volumes(got, ref, sdf_trunc, what, depth_max):
+    """A TSDF volume on the card against the same export on the CPU:
+    weights equal, tsdf within the render's tolerance carried through
+    (1e-5 + 1e-5 * depth) / sdf_trunc, colours and features within 1e-5,
+    except at voxels whose decision flipped (at most 1e-4 of them)."""
+    w_got, w_ref = got.weight.cpu(), ref.weight
+    differ = w_got != w_ref
+    tol = {"tsdf": (1e-5 + 1e-5 * depth_max) / sdf_trunc, "color": 1e-5,
+           "features": 1e-5}
+    errs = {}
+    for name, t in tol.items():
+        a, b = getattr(got, name), getattr(ref, name)
+        if a is None and b is None:
+            continue
+        err = (a.cpu() - b).abs().reshape(differ.numel(), -1).amax(-1)
+        err = err.reshape(differ.shape)
+        errs[name] = float(err[~differ].max()) if (~differ).any() else 0.0
+        differ |= err > t
+    n_diff = int(differ.sum())
+    if n_diff > 1e-4 * differ.numel() or not bool((w_ref > 0).any()):
+        raise AssertionError(f"{what}: {n_diff} of {differ.numel()} voxels "
+                             f"differ from the CPU's (errors {errs})")
+    return n_diff, errs
+
+
+def hold_meshes(got, ref, voxel, what, attrs=()):
+    """A mesh from the card against the CPU's: vertex counts within 2%,
+    symmetric mean Chamfer distance at most 0.25 voxel, each attribute in
+    ``attrs`` within 1e-4 at matched vertices (mutual nearest, closer than
+    1e-3 voxel)."""
+    gv = np.asarray(got["vertices"], np.float64)
+    rv = np.asarray(ref["vertices"], np.float64)
+    if abs(len(gv) - len(rv)) > 0.02 * len(rv) or len(rv) == 0:
+        raise AssertionError(f"{what}: {len(gv)} vertices on the card, "
+                             f"{len(rv)} on the CPU")
+    d_gr, i_gr = cKDTree(rv).query(gv)
+    d_rg, i_rg = cKDTree(gv).query(rv)
+    chamfer = 0.5 * (d_gr.mean() + d_rg.mean()) / voxel
+    matched = (i_rg[i_gr] == np.arange(len(gv))) & (d_gr < 1e-3 * voxel)
+    errs = {k: float(np.abs(got[k][matched] - ref[k][i_gr[matched]]).max())
+            for k in attrs}
+    if chamfer > 0.25 or matched.mean() < 0.5 or any(
+            e > 1e-4 for e in errs.values()):
+        raise AssertionError(f"{what}: Chamfer {chamfer:.3g} voxel, "
+                             f"{100 * matched.mean():.1f}% matched, "
+                             f"attribute errors {errs}")
+    return chamfer, float(matched.mean()), errs
+
+
+def on_cpu(params, alive, cams):
+    return ({k: v.cpu() for k, v in params.items()}, alive.cpu(),
+            [dataclasses.replace(c, K=c.K.cpu(), c2w=c.c2w.cpu())
+             for c in cams])
+
+
+def mesh_small_scenes(dev, scenes):
+    """The meshing paths on small scenes, on the card against the CPU
+    (plain versions): the TSDF exporter on the flat disk of
+    tests/test_meshing.py (volumes and mesh), the level-set extractor
+    (density grid and mesh) and the depth-and-normal Poisson exporter
+    (mesh) on the flagship scene; then both on the flagship scene at their
+    full sizes on the card alone, timed."""
+    disk = synthetic.flat_disk_gaussian(normal=(0, 0, 1), radius=0.5,
+                                        thickness=0.005, device=dev)
+    disk["opacities"] = torch.full((1, 1), 8.0, device=dev)
+    cams = synthetic.orbit_cameras(6, radius=2.0, width=64, height=64,
+                                   focal=80.0, elevation=0.9, device=dev)
+    mcfg = rade_gs.RadeGSConfig(sh_degree=0, background="black",
+                                render=RenderOptions(
+                                    tile_capacity=64,
+                                    max_intersections=1 << 12))
+    ecfg = exporters.TSDFExporterConfig(
+        voxel_size=0.04, sdf_trunc=0.12, depth_trunc=4.0, align_floor=False,
+        max_dim=64, clean_repair=True)
+    alive = torch.ones(1, dtype=torch.bool, device=dev)
+    card = exporters.TSDFFusionExporter(disk, alive, mcfg, ecfg)
+    got = card.main(cams)
+    cdisk, calive, ccams = on_cpu(disk, alive, cams)
+    cpu = exporters.TSDFFusionExporter(cdisk, calive, mcfg, ecfg)
+    ref = cpu.main(ccams)
+    for r, w in ((got, "card"), (ref, "CPU")):
+        # One Gaussian: every vertex normal is its unit normal.
+        lengths = check_mesh(r, f"disk TSDF ({w})")
+        if np.abs(lengths - 1.0).max() > 1e-4:
+            raise AssertionError(f"disk TSDF ({w}): normals not unit")
+    n_diff, verrs = hold_volumes(card.volume, cpu.volume,
+                                 card.tsdf_config.sdf_trunc, "disk TSDF", 4.0)
+    chamfer, share, merrs = hold_meshes(got, ref, card.tsdf_config.voxel_size,
+                                        "disk TSDF mesh",
+                                        ("colors", "normals"))
+    say(f"meshing, card vs CPU: TSDF exporter on the flat disk (6 cameras "
+        f"at 64x64, dims {card.tsdf_config.dims}): {n_diff} voxels with "
+        f"another decision, otherwise max abs err {verrs}; mesh "
+        f"{len(got['vertices'])}/{len(ref['vertices'])} vertices, Chamfer "
+        f"{chamfer:.3g} voxel, {100 * share:.1f}% matched, attribute errors "
+        f"{merrs}")
+
+    params, alive, _, cfg = scenes["flagship"]
+    size = FLAGSHIP_MESH_SIZE
+    cams = synthetic.orbit_cameras(2, radius=3.0, width=size, height=size,
+                                   focal=1.2 * size, device=dev)
+    cparams, calive, ccams = on_cpu(params, alive, cams)
+    pts = params["means"]
+    lo = pts.min(0).values.cpu().numpy() - 0.1
+    hi = pts.max(0).values.cpu().numpy() + 0.1
+    dens = exporters.gaussian_density_grid(params, alive, lo, hi, 32)[0]
+    dref = exporters.gaussian_density_grid(cparams, calive, lo, hi, 32)[0]
+    derr = float(np.abs(dens - dref).max())
+    if derr > 1e-5 * float(np.abs(dref).max()):
+        raise AssertionError(f"density grid: card vs CPU max abs err {derr}")
+    got = exporters.LevelSetExtractor(params, alive, cfg,
+                                      resolution=32).main()
+    ref = exporters.LevelSetExtractor(cparams, calive, cfg,
+                                      resolution=32).main()
+    voxel = float(((hi - lo) / 31).max())
+    ls = hold_meshes(got, ref, voxel, "flagship level set")
+    ls_counts = (len(got["vertices"]), len(ref["vertices"]))
+    dn = exporters.DepthAndNormalMapsPoissonExporter(params, alive, cfg,
+                                                     grid_res=128)
+    got = dn.main(cams)
+    ref = exporters.DepthAndNormalMapsPoissonExporter(
+        cparams, calive, cfg, grid_res=128).main(ccams)
+    npts = (len(got["points"]), len(ref["points"]))
+    if abs(npts[0] - npts[1]) > 1e-3 * npts[1]:
+        raise AssertionError(f"depth-normal points: {npts}")
+    span = float((ref["points"].max(0) - ref["points"].min(0)).max())
+    pn = hold_meshes(got, ref, 1.2 * span / 127,
+                     "flagship depth-normal Poisson")
+    say(f"meshing, card vs CPU, flagship scene ({pts.shape[0]} "
+        f"Gaussians): density grid 32^3 max abs err {derr:.3g} (max "
+        f"{float(dref.max()):.4f}); "
+        f"level set (32^3) mesh {ls_counts[0]}/{ls_counts[1]} vertices, "
+        f"Chamfer {ls[0]:.3g} voxel, {100 * ls[1]:.1f}% matched; "
+        f"depth-normal Poisson (2 cameras at {size}x{size}, grid 128): "
+        f"{npts[0]}/{npts[1]} points, mesh {len(got['vertices'])}/"
+        f"{len(ref['vertices'])} vertices, Chamfer {pn[0]:.3g} voxel, "
+        f"{100 * pn[1]:.1f}% matched")
+
+    # Full sizes on the card: the level set at 128^3, the depth-normal
+    # Poisson over four cameras at grid 256.
+    times = {}
+    t0 = time.perf_counter()
+    res = exporters.LevelSetExtractor(
+        params, alive, cfg, resolution=LEVEL_SET_RES).main(stage_times=times)
+    whole = time.perf_counter() - t0
+    say(f"meshing layers, flagship level set ({LEVEL_SET_RES}^3, host "
+        f"clock): "
+        f"{stage_line(times, ('density grid', 'marching', 'transfer'))}; "
+        f"whole {whole:.4f} s; {len(res['vertices'])} vertices, "
+        f"{len(res['faces'])} faces")
+    cams = synthetic.orbit_cameras(4, radius=3.0, width=size, height=size,
+                                   focal=1.2 * size, device=dev)
+    times = {}
+    t0 = time.perf_counter()
+    res = exporters.DepthAndNormalMapsPoissonExporter(
+        params, alive, cfg, grid_res=POISSON_RES).main(cams,
+                                                       stage_times=times)
+    whole = time.perf_counter() - t0
+    say(f"meshing layers, flagship depth-normal Poisson (4 cameras at "
+        f"{size}x{size}, grid {POISSON_RES}, host clock): "
+        f"{stage_line(times, ('render', 'back-project') + POISSON_STAGES)}; "
+        f"whole {whole:.4f} s; {len(res['points'])} points, "
+        f"{len(res['vertices'])} vertices, {len(res['faces'])} faces")
+
+
+def hold_transfer(exporter, res, dev):
+    """The k-NN transfer of normals ++ latents to a seeded sample of the
+    mesh's vertices, on the card against the CPU: the same neighbour sets
+    and values within rtol 1e-5 / atol 1e-6."""
+    rng = np.random.default_rng(0)
+    pick = rng.choice(len(res["vertices"]), TRANSFER_SAMPLE, replace=False)
+    T = res["floor_transform"]
+    q = ((res["vertices"][pick] - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    alive = exporter.alive
+    values = torch.cat([exporter.splat_normals(),
+                        exporter.params["distill_features"][alive]], -1)
+    src = exporter.params["means"][alive]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        idx, d2 = mesh_transfer.knn_neighbours(
+            torch.from_numpy(q).to(d), src.to(d), k=exporter.config.transfer_k)
+        out.append((idx.cpu(), mesh_transfer.apply_weights(
+            idx, mesh_transfer.knn_weights(d2), values.to(d)).cpu()))
+    (gi, gv), (ri, rv) = out
+    if not torch.equal(gi.sort(1).values, ri.sort(1).values):
+        raise AssertionError("k-NN transfer: neighbour sets differ from the "
+                             "CPU's")
+    torch.testing.assert_close(gv, rv, rtol=1e-5, atol=1e-6,
+                               msg="k-NN transfer: card vs CPU")
+    return float((gv - rv).abs().max())
+
+
+@torch.no_grad()
+def mesh_path(dev, ckpt, cams, render_opts):
+    """Main path 7: restore path 5's checkpoint with ``load_checkpoint``,
+    export a TSDF mesh with features at the bench scene's full width
+    (TSDFFusionExporter over the four training cameras at 1280x720), then
+    repeat it from the same state (same volume bits, same mesh.ply bytes);
+    export the Poisson mesh of the splat (GaussiansToPoissonExporter at
+    grid 256), hold its trilinear splat's segment sums bit-exact against
+    the plain version and a repeated chi field bit-identical.  Returns the
+    launches of the two exports."""
+    step, params, alive, _ = checkpoint.load_checkpoint(ckpt, device=dev)
+    latent = params["distill_features"].shape[1]
+    if step != SAVE_AT or latent != 13:
+        raise AssertionError(f"checkpoint {ckpt.name}: step {step}, "
+                             f"latents {latent}")
+    if mesh_native.load() is None:
+        raise AssertionError("libmesh_repair.so was not built or loaded")
+    spec = get_method("rade-features")
+    model = dataclasses.replace(spec.make_trainer_config(
+        feature_dims=FEATURE_DIMS, rasterize_mode="antialiased").model,
+        render=render_opts)
+    ecfg = exporters.TSDFExporterConfig(depth_trunc=MESH_DEPTH_TRUNC)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+
+    def export(out_dir, times=None):
+        ex = exporters.TSDFFusionExporter(params, alive, model, ecfg)
+        return ex, ex.main(cams, out_dir, stage_times=times)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    ex, res = export(MESH_DIR / "tsdf", times)
+    whole = time.perf_counter() - t0
+    tsdf_launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(cams)
+    want = {k: {"decode": n, "composite": n}.get(k, 0) for k in tsdf_launches}
+    if tsdf_launches != want:
+        raise AssertionError(f"TSDF export: launches {tsdf_launches}, "
+                             f"expected {want}")
+    lengths = check_mesh(res, "TSDF export", latent)
+    files = {f: (MESH_DIR / "tsdf" / f).stat().st_size
+             for f in ("splats.ply", "mesh.ply", "mesh_features.npz")}
+    tcfg, vol = ex.tsdf_config, ex.volume
+    say(f"main path 7 (mesh extraction): restored {ckpt.name} (step {step}, "
+        f"capacity {alive.shape[0]}, {int(alive.sum())} alive, latent "
+        f"{latent}) with load_checkpoint; TSDFFusionExporter over {n} "
+        f"cameras at {cams[0].width}x{cams[0].height}, depth_trunc "
+        f"{MESH_DEPTH_TRUNC}, voxel {tcfg.voxel_size}, sdf_trunc "
+        f"{tcfg.sdf_trunc}, dims {tcfg.dims} ({math.prod(tcfg.dims)} voxels, "
+        f"{100 * float((vol.weight > 0).float().mean()):.2f}% observed), "
+        f"feature volume {tuple(vol.features.shape)}; launches "
+        f"{ {k: v for k, v in tsdf_launches.items() if v} }; "
+        f"{len(res['vertices'])} vertices, {len(res['faces'])} faces, "
+        f"features {res['features'].shape}, normal lengths min "
+        f"{lengths.min():.4f} mean {lengths.mean():.4f}; files {files}; "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB; libmesh_repair.so "
+        f"loaded")
+    per_cam = {k: times[k] for k in ("render", "integrate")}
+    say(f"meshing layers, TSDF export (host clock): "
+        f"{stage_line(times, MESH_STAGES)}; render per camera "
+        f"{1e3 * statistics.median(per_cam['render']):.4f} ms, integrate "
+        f"per camera {1e3 * statistics.median(per_cam['integrate']):.4f} "
+        f"ms (medians); whole export {whole:.4f} s")
+    terr = hold_transfer(ex, res, dev)
+    say(f"k-NN transfer: {TRANSFER_SAMPLE} seeded vertices, card vs CPU "
+        f"over {int(alive.sum())} sources: neighbour sets equal, max abs err "
+        f"{terr:.3g}")
+
+    ex2, res2 = export(MESH_DIR / "tsdf_repeat")
+    for name in ("tsdf", "weight", "color", "features"):
+        if not torch.equal(getattr(vol, name), getattr(ex2.volume, name)):
+            raise AssertionError(f"repeated TSDF export: {name} differs")
+    mesh_a = (MESH_DIR / "tsdf" / "mesh.ply").read_bytes()
+    mesh_b = (MESH_DIR / "tsdf_repeat" / "mesh.ply").read_bytes()
+    if mesh_a != mesh_b:
+        raise AssertionError("repeated TSDF export: mesh.ply differs")
+    say(f"determinism: the TSDF export repeated from the same state gave "
+        f"bit-identical tsdf, weight, color and feature volumes and the "
+        f"same mesh.ply ({len(mesh_a)} bytes)")
+    del ex, ex2, vol, res2
+    torch.cuda.empty_cache()
+
+    # The Poisson route on the same splat.
+    gp = exporters.GaussiansToPoissonExporter(params, alive, model,
+                                              grid_res=POISSON_RES)
+    ptimes = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    pres = gp.main(MESH_DIR / "poisson", stage_times=ptimes)
+    pwhole = time.perf_counter() - t0
+    poisson_launches = counts()
+    want = {k: {"segment_sum": 2}.get(k, 0) for k in poisson_launches}
+    if poisson_launches != want:
+        raise AssertionError(f"Poisson export: launches {poisson_launches}, "
+                             f"expected {want}")
+    if len(pres["faces"]) == 0 or pres["faces"].max() >= len(
+            pres["vertices"]) or not np.isfinite(pres["vertices"]).all():
+        raise AssertionError("Poisson export: no valid mesh")
+    say(f"main path 7 (Poisson): GaussiansToPoissonExporter at grid "
+        f"{POISSON_RES} over {len(pres['points'])} splats (opacity > 0.1): "
+        f"launches { {k: v for k, v in poisson_launches.items() if v} }; "
+        f"{len(pres['vertices'])} vertices, {len(pres['faces'])} faces")
+    say(f"meshing layers, Poisson export (host clock): "
+        f"{stage_line(ptimes, POISSON_STAGES)}; whole export {pwhole:.4f} "
+        f"s")
+
+    # Kernel 4 on the splat's own rows (normals ++ 1 at the eight corners).
+    pts_vox = poisson.voxel_coords(pres["points"], POISSON_RES)[0]
+    pts_t = torch.from_numpy(pts_vox).to(dev)
+    nrm_t = torch.from_numpy(pres["normals"]).to(dev)
+    ids, rows = poisson.scatter_rows(
+        POISSON_RES, pts_t, torch.cat([nrm_t, torch.ones_like(nrm_t[:, :1])],
+                                      -1))
+    n_vox = POISSON_RES ** 3
+    sorted_ids, order = torch.sort(ids, stable=True)
+    check_segsum_rows(sorted_ids, order, rows, n_vox, "Poisson splat")
+    chi = poisson._poisson_field(pts_t, nrm_t, POISSON_RES, 0.0)
+    if not torch.equal(chi, poisson._poisson_field(pts_t, nrm_t,
+                                                   POISSON_RES, 0.0)):
+        raise AssertionError("Poisson: a repeated chi field differs")
+    m, d = rows.shape
+    rec = {
+        "ms": median_ms(lambda: segsum_kernel.segment_sum_sorted(
+            sorted_ids, order, rows, n_vox)),
+        "plain_ms": median_ms(lambda: segsum_kernel.segment_sum_plain(
+            sorted_ids, order, rows, n_vox)),
+        "library_ms": median_ms(lambda: torch.zeros(
+            (n_vox, d), device=dev).index_add_(0, ids.long(), rows)),
+        "sort_ms": median_ms(lambda: torch.sort(ids, stable=True)),
+        "bound": segsum_bound(m, d, n_vox),
+    }
+    say(f"kernel 4 at the Poisson splat (M={m}, D={d}, n={n_vox}): "
+        f"bit-identical to its plain version, repeat bit-identical; kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, index_add_ "
+        f"{rec['library_ms']:.4f} ms, stable sort {rec['sort_ms']:.4f} ms, "
+        f"bound {rec['bound'][0]:.4f} ms by {rec['bound'][1]} (median of "
+        f"{REPS}); chi {tuple(chi.shape)} repeated bit-identical")
+    del pts_t, nrm_t, ids, rows, sorted_ids, order, chi
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {k: tsdf_launches[k] + poisson_launches[k] for k in tsdf_launches}
 
 
 def main() -> int:
@@ -2026,8 +2433,17 @@ def main() -> int:
     fx = feature_step_path(fdata, dev, "xla")
     fp = feature_step_path(fdata, dev, "pallas")
     prog_launches = progressive_phase(fdata, dev)
+    mesh_cams, mesh_render = fdata.cams, fdata.render
     del fdata
     torch.cuda.empty_cache()
+
+    # Main path 7, mesh extraction from path 5's checkpoint (deleted
+    # after); then the meshing paths on small scenes against the CPU.
+    mesh_launches = mesh_path(dev, fx["ckpt"], mesh_cams, mesh_render)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del mesh_cams
+    torch.cuda.empty_cache()
+    mesh_small_scenes(dev, scenes)
     for backend, f in (("xla", fx), ("pallas", fp)):
         say(f"layers of the rade-features {backend} train step, bench scene "
             f"camera 0 (median of {REPS}, ms): " + ", ".join(
@@ -2226,12 +2642,13 @@ def main() -> int:
         f"{segsum_kernel.LONG_ROWS}")
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
-    # launches summed over the training main paths.
+    # launches summed over the training main paths and mesh extraction.
     path_launches = {"path 2 (xla)": launches, "path 4 (pallas)": plaunches,
                      "path 5 (rade-features, xla)": fx["launches"],
                      "path 6 (rade-features, pallas)": fp["launches"],
-                     "progressive resolution": prog_launches}
-    say("launches per training main path: " + "; ".join(
+                     "progressive resolution": prog_launches,
+                     "path 7 (mesh extraction)": mesh_launches}
+    say("launches per training and meshing main path: " + "; ".join(
         f"{k}: { {n: v for n, v in p.items() if v} }"
         for k, p in path_launches.items()))
     launches = {k: sum(p[k] for p in path_launches.values())

@@ -8,7 +8,6 @@ triangle faces: the subset the splat/mesh pipeline uses.
 
 from __future__ import annotations
 
-import struct
 from typing import Dict, Optional
 
 import numpy as np
@@ -149,9 +148,11 @@ def write_ply(
         f.write(b"end_header\n")
         f.write(arr.tobytes())
         if faces is not None:
+            # Each face is a uchar count and its int32 indices, packed: one
+            # record array, the bytes of a per-face struct.pack loop.
             fa = np.asarray(faces, np.int32)
-            buf = bytearray()
-            for tri in fa:
-                buf += struct.pack("<B", len(tri))
-                buf += tri.astype("<i4").tobytes()
-            f.write(bytes(buf))
+            rec = np.empty(len(fa), np.dtype(
+                [("n", "u1"), ("v", "<i4", (fa.shape[1],))]))
+            rec["n"] = fa.shape[1]
+            rec["v"] = fa
+            f.write(rec.tobytes())

@@ -104,3 +104,42 @@ def orbit_cameras(
                                 width, height, look_at_c2w(eye, target),
                                 device=device))
     return cams
+
+
+def flat_disk_gaussian(center=(0.0, 0.0, 0.0), normal=(0.0, 0.0, 1.0),
+                       radius=0.3, thickness=1e-3,
+                       device=None) -> Dict[str, torch.Tensor]:
+    """One flat disk Gaussian with a known geometric normal: raw
+    parameters with scales (radius, radius, thickness) and the rotation
+    whose z-axis is ``normal``, as the JAX package's function builds it."""
+    dev = resolve_device(device)
+    normal = np.asarray(normal, np.float64)
+    normal = normal / np.linalg.norm(normal)
+    # Build rotation with z-axis = normal, convert to wxyz quaternion.
+    helper = np.array([1.0, 0.0, 0.0])
+    if abs(np.dot(helper, normal)) > 0.9:
+        helper = np.array([0.0, 1.0, 0.0])
+    x = np.cross(helper, normal)
+    x = x / np.linalg.norm(x)
+    y = np.cross(normal, x)
+    R = np.stack([x, y, normal], axis=1)
+    w = np.sqrt(max(1.0 + R[0, 0] + R[1, 1] + R[2, 2], 1e-12)) / 2.0
+    quat = np.array([
+        w,
+        (R[2, 1] - R[1, 2]) / (4 * w),
+        (R[0, 2] - R[2, 0]) / (4 * w),
+        (R[1, 0] - R[0, 1]) / (4 * w),
+    ])
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return {
+        "means": f32([center]),
+        "scales": torch.log(f32([[radius, radius, thickness]])),
+        "quats": f32([quat]),
+        "opacities": f32([[4.0]]),   # sigmoid(4) ~ 0.982
+        "features_dc": rgb_to_sh0(f32([[0.8, 0.2, 0.2]])),
+        "features_rest": torch.zeros((1, 0, 3), dtype=torch.float32,
+                                     device=dev),
+    }

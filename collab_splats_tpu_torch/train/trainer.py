@@ -65,7 +65,7 @@ class TrainerConfig:
         if self.optimize_camera_poses or self.use_bilateral_grid:
             raise NotImplementedError(
                 "camera_opt and bilateral grids are not ported yet "
-                "(ROADMAP Queue 1 item 4)")
+                "(ROADMAP Queue 1 item 2)")
 
 
 def _move_camera(cam: Camera, device) -> Camera:

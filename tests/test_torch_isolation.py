@@ -14,9 +14,12 @@ import torch
 import collab_splats_tpu_torch
 from collab_splats_tpu_torch.core.cameras import camera_from_numpy, make_camera
 from collab_splats_tpu_torch.data.synthetic import (
+    flat_disk_gaussian,
     orbit_cameras,
     random_gaussian_params,
 )
+from collab_splats_tpu_torch.meshing import tsdf
+from collab_splats_tpu_torch.meshing.poisson import poisson_reconstruct
 from collab_splats_tpu_torch.models.gaussians import (
     init_from_points,
     params_from_numpy,
@@ -39,7 +42,10 @@ def test_every_module_imports_without_jax():
     assert "collab_splats_tpu_torch.ops.cuda.batched" in mods
     for m in ("ops.cuda.segsum_kernel", "ops.cuda.composite",
               "train.losses", "train.optim", "train.strategy",
-              "train.trainer"):
+              "train.trainer", "meshing.marching", "meshing._native",
+              "meshing.repair", "meshing.align", "meshing.tsdf",
+              "meshing.transfer", "meshing.poisson", "meshing.exporters",
+              "utils.metrics"):
         assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]
@@ -84,9 +90,16 @@ def test_no_jax_import_in_source(path):
                              np.zeros((4, 3), np.float32), None),
     lambda: strategy.init_state(4),
     lambda: Trainer(TrainerConfig(), [], [], {}, torch.zeros(0, dtype=bool)),
+    lambda: tsdf.create_volume(tsdf.TSDFConfig(dims=(4, 4, 4))),
+    lambda: tsdf.volume_from_bounds(np.zeros(3), np.ones(3), 0.5),
+    lambda: flat_disk_gaussian(),
+    lambda: poisson_reconstruct(np.eye(3, dtype=np.float32),
+                                np.eye(3, dtype=np.float32), grid_res=8),
 ], ids=["random_gaussian_params", "orbit_cameras", "make_camera",
         "camera_from_numpy", "params_from_numpy", "init_from_points",
-        "strategy.init_state", "Trainer"])
+        "strategy.init_state", "Trainer", "tsdf.create_volume",
+        "tsdf.volume_from_bounds", "flat_disk_gaussian",
+        "poisson_reconstruct"])
 def test_card_default_raises_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
