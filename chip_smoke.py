@@ -9,7 +9,7 @@ the four compositing kernels also on the seeded edge cases of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 ``backend="pallas"`` render against the ``"xla"`` render.  Then it drives
-the port's seven main paths:
+the port's eight main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -45,7 +45,19 @@ the port's seven main paths:
    against the plain version and a repeated chi field bit-identical; then
    the TSDF exporter on a flat disk and the level-set and depth-and-normal
    Poisson exporters on the flagship scene, card against CPU, and the
-   latter two at full size on the card, with each meshing layer's time.
+   latter two at full size on the card, with each meshing layer's time;
+8. the feature towers at their released shapes (CLIP ViT-L/14@336 and its
+   text tower, DINOv2 ViT-S/14, SAM ViT-B, YOLOv8x), with seeded weights
+   written in the converters' npz layouts to a temporary directory and
+   loaded through the entry points' weights files: ``FeatureDatamanager``
+   extracts clip-vit [768, 35, 64] and dinov2 [384, 32, 57] maps from the
+   four bench images (cached and read back to the same bits), twelve
+   rade-features steps train on them, the text tower embeds seeded ids
+   that ``query_vertices`` and ``similarity_map`` score against path 7's
+   mesh and a rendered view, and ``GroupingClassifier`` groups the bench
+   scene's 1M Gaussians over the four views, segmented by SAM prompted
+   with YOLOv8 boxes; the extraction, segmentation and grouping repeated
+   to the same bits, and each tower held card against CPU.
 
 It checks what comes out, the kernels each path launches (path 7 needs
 ``cpp/libmesh_repair.so``, built at first use), and prints
@@ -69,10 +81,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -86,7 +100,13 @@ from collab_splats_tpu_torch.core.options import RenderOptions
 from collab_splats_tpu_torch.core.projection import project_gaussians
 from collab_splats_tpu_torch.data import (compositing_cases, decode_plans,
                                           synthetic)
+from collab_splats_tpu_torch.data.datamanager import FullImageDatamanager
+from collab_splats_tpu_torch.features import datamanager as feature_dm
 from collab_splats_tpu_torch.features import decoder as decoder_lib
+from collab_splats_tpu_torch.features import (extractors, grouping,
+                                              sam_predictor, segmentation,
+                                              vit, yolo)
+from collab_splats_tpu_torch.features import sam as sam_mod
 from collab_splats_tpu_torch.meshing import _native as mesh_native
 from collab_splats_tpu_torch.meshing import exporters, poisson
 from collab_splats_tpu_torch.meshing import transfer as mesh_transfer
@@ -1295,14 +1315,15 @@ def feature_data(dev, **scene):
 
 
 def feature_trainer(data, dev, backend="xla", refine_every=REFINE_EVERY,
-                    reg_from=REG_FROM, checkpoint_fn=None, **trainer_kw):
+                    reg_from=REG_FROM, checkpoint_fn=None,
+                    feature_dims=FEATURE_DIMS, **trainer_kw):
     """A rade-features trainer as a user builds one:
     ``get_method("rade-features").make_trainer_config`` with its defaults
     (latent 13, hidden 64, sh_degree 0) at the bench scene's render options
     and ``num_downscales=0`` (or ``trainer_kw``), the method's groups, and
     a decoder drawn from a fixed seed."""
     spec = get_method("rade-features")
-    base = spec.make_trainer_config(feature_dims=FEATURE_DIMS,
+    base = spec.make_trainer_config(feature_dims=feature_dims,
                                     rasterize_mode="antialiased")
     model = dataclasses.replace(
         base.model, background="random", regularization_from_iter=reg_from,
@@ -2112,8 +2133,10 @@ def mesh_path(dev, ckpt, cams, render_opts):
     export the Poisson mesh of the splat (GaussiansToPoissonExporter at
     grid 256), hold its trilinear splat's segment sums bit-exact against
     the plain version and a repeated chi field bit-identical.  Returns the
-    launches of the two exports."""
-    step, params, alive, _ = checkpoint.load_checkpoint(ckpt, device=dev)
+    launches of the two exports, the TSDF mesh's vertex latents (its
+    mesh_features.npz) and the checkpoint's decoder, for path 8's query."""
+    step, params, alive, extras = checkpoint.load_checkpoint(ckpt,
+                                                              device=dev)
     latent = params["distill_features"].shape[1]
     if step != SAVE_AT or latent != 13:
         raise AssertionError(f"checkpoint {ckpt.name}: step {step}, "
@@ -2148,6 +2171,8 @@ def mesh_path(dev, ckpt, cams, render_opts):
     lengths = check_mesh(res, "TSDF export", latent)
     files = {f: (MESH_DIR / "tsdf" / f).stat().st_size
              for f in ("splats.ply", "mesh.ply", "mesh_features.npz")}
+    with np.load(MESH_DIR / "tsdf" / "mesh_features.npz") as data:
+        vertex_latents = data["features"]
     tcfg, vol = ex.tsdf_config, ex.volume
     say(f"main path 7 (mesh extraction): restored {ckpt.name} (step {step}, "
         f"capacity {alive.shape[0]}, {int(alive.sum())} alive, latent "
@@ -2245,7 +2270,627 @@ def mesh_path(dev, ckpt, cams, render_opts):
         f"{REPS}); chi {tuple(chi.shape)} repeated bit-identical")
     del pts_t, nrm_t, ids, rows, sorted_ids, order, chi
     shutil.rmtree(MESH_DIR, ignore_errors=True)
-    return {k: tsdf_launches[k] + poisson_launches[k] for k in tsdf_launches}
+    decoder = decoder_lib.decoder_from_numpy(
+        checkpoint.decoder_arrays(extras), device=dev)
+    return ({k: tsdf_launches[k] + poisson_launches[k]
+             for k in tsdf_launches}, vertex_latents, decoder)
+
+
+# ------------------------------------------------ main path 8: the towers
+# The feature towers at their released shapes, with weights drawn from
+# seeded generators and written in the converters' npz layouts
+# (scripts/convert_weights.py, convert_sam.py, convert_yolo.py) into a
+# temporary directory outside the checkout, then loaded through each entry
+# point's weights file, as a user's converted checkpoint is.
+CLIP_L14_336 = dict(visual=dict(dim=1024, n_blocks=24, patch_size=14,
+                                embed_dim=768, grid=24),
+                    text=dict(dim=768, n_blocks=12, vocab=49408, context=77,
+                              embed_dim=768))
+DINOV2_S14 = dict(dim=384, n_blocks=12, patch_size=14, mlp_ratio=4, grid=37)
+# Trained DINOv2 checkpoints carry LayerScale gammas of order 0.1; the
+# init's 1e-5 would leave the blocks out of every output.
+DINOV2_LAYER_SCALE = 0.1
+SAM_VIT_B = dict(dim=768, n_blocks=12, heads=12, window=14,
+                 global_blocks=(2, 5, 8, 11))
+# YOLOv8x (width 1.25, depth 1.0, max channels 512 * 1.25): the size of
+# MobileSAMv2's ObjectAwareModel.pt (68M parameters, 138 MB in fp16).
+YOLOV8X = dict(widths=(80, 160, 320, 640, 640), repeats=(3, 6, 6, 3),
+               head_repeats=3, nc=1)
+# Random weights put SAM's predicted IoU anywhere; the IoU head's last bias
+# at 0.92 lets the masks pass the composite's 0.85 confidence gate, so the
+# grouping has masks to work on.
+SAM_IOU_BIAS = 0.92
+TOWER_STEPS = 12         # rade-features steps on the extracted maps
+TOWER_MAPS = {"clip-vit": (768, 35, 64), "dinov2": (384, 32, 57)}
+# Card against CPU: max abs err / max|ref|.  Both run float32 with TF32
+# off; on one H100 every tower came within 2.2e-6.
+TOWER_LIMIT = 1e-5
+GROUPING_GAUSSIANS = 1_000_000
+SOT, EOT = 49406, 49407  # CLIP's start and end of text
+
+
+def to_numpy(params):
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def sam_params(seed, dim=768, n_blocks=12, heads=12, window=14,
+               global_blocks=(2, 5, 8, 11)):
+    """SAM's encoder, prompt encoder and two-way decoder in the layout of
+    ``scripts/convert_sam.py`` (numpy): linear weights normal with variance
+    1 / fan_in, zero biases, unit LayerNorms, rel-pos tables 2 * window - 1
+    long (127 in the global blocks), the IoU head's last bias at
+    SAM_IOU_BIAS."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, fan_in=None):
+        fan = fan_in or shape[0]
+        return (rng.standard_normal(shape) / math.sqrt(fan)).astype(
+            np.float32)
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def ln(p, pre, d):
+        p[f"{pre}.scale"], p[f"{pre}.bias"] = np.ones(d, np.float32), \
+            zeros(d)
+
+    p = {"enc.patch_embed.w": w(16 * 16 * 3, dim),
+         "enc.patch_embed.b": zeros(dim),
+         "enc.pos_embed": 0.02 * w(64, 64, dim, fan_in=1),
+         "enc.n_blocks": np.asarray(n_blocks), "enc.window": np.asarray(window),
+         "enc.num_heads": np.asarray(heads),
+         "enc.global_blocks": np.asarray(global_blocks)}
+    for i in range(n_blocks):
+        pre = f"enc.blocks.{i}"
+        ln(p, f"{pre}.ln1", dim)
+        ln(p, f"{pre}.ln2", dim)
+        rel = 2 * (64 if i in global_blocks else window) - 1
+        p.update({f"{pre}.attn.qkv.w": w(dim, 3 * dim),
+                  f"{pre}.attn.qkv.b": zeros(3 * dim),
+                  f"{pre}.attn.proj.w": w(dim, dim),
+                  f"{pre}.attn.proj.b": zeros(dim),
+                  f"{pre}.attn.rel_pos_h": 0.02 * w(rel, dim // heads,
+                                                    fan_in=1),
+                  f"{pre}.attn.rel_pos_w": 0.02 * w(rel, dim // heads,
+                                                    fan_in=1),
+                  f"{pre}.mlp.w1": w(dim, 4 * dim),
+                  f"{pre}.mlp.b1": zeros(4 * dim),
+                  f"{pre}.mlp.w2": w(4 * dim, dim),
+                  f"{pre}.mlp.b2": zeros(dim)})
+    p["enc.neck.conv1.w"] = w(dim, 256)
+    ln(p, "enc.neck.ln1", 256)
+    p["enc.neck.conv2.w"] = w(3, 3, 256, 256, fan_in=9 * 256)
+    ln(p, "enc.neck.ln2", 256)
+    p["prompt.pe_gauss"] = w(2, 128, fan_in=1)
+    for i in range(4):
+        p[f"prompt.point_embed.{i}"] = w(256, fan_in=1)
+    p["prompt.not_a_point"] = w(256, fan_in=1)
+    p["prompt.no_mask"] = w(256, fan_in=1)
+    p.update({"dec.iou_token": w(256, fan_in=1),
+              "dec.mask_tokens": w(4, 256, fan_in=1),
+              "dec.n_layers": np.asarray(2), "dec.num_heads": np.asarray(8)})
+
+    def attn(pre, inner):
+        for nm in "qkv":
+            p[f"{pre}.{nm}.w"], p[f"{pre}.{nm}.b"] = w(256, inner), \
+                zeros(inner)
+        p[f"{pre}.out.w"], p[f"{pre}.out.b"] = w(inner, 256), zeros(256)
+
+    for i in range(2):
+        pre = f"dec.layers.{i}"
+        attn(f"{pre}.self_attn", 256)
+        attn(f"{pre}.cross_t2i", 128)
+        attn(f"{pre}.cross_i2t", 128)
+        for j in (1, 2, 3, 4):
+            ln(p, f"{pre}.ln{j}", 256)
+        p.update({f"{pre}.mlp.w1": w(256, 2048), f"{pre}.mlp.b1": zeros(2048),
+                  f"{pre}.mlp.w2": w(2048, 256), f"{pre}.mlp.b2": zeros(256)})
+    attn("dec.final_attn", 128)
+    ln(p, "dec.ln_final", 256)
+    p.update({"dec.up1.w": w(2, 2, 64, 256, fan_in=256),
+              "dec.up1.b": zeros(64),
+              "dec.up2.w": w(2, 2, 32, 64, fan_in=64), "dec.up2.b": zeros(32)})
+    ln(p, "dec.up_ln", 64)
+    for j in range(4):
+        for li, (a, b) in enumerate(((256, 256), (256, 256), (256, 32))):
+            p[f"dec.hyper.{j}.w{li}"], p[f"dec.hyper.{j}.b{li}"] = \
+                w(a, b), zeros(b)
+    for li, (a, b) in enumerate(((256, 256), (256, 256), (256, 4))):
+        p[f"dec.iou_head.w{li}"], p[f"dec.iou_head.b{li}"] = w(a, b), zeros(b)
+    p["dec.iou_head.w2"] *= 0.01
+    p["dec.iou_head.b2"] = np.full(4, SAM_IOU_BIAS, np.float32)
+    return p
+
+
+def yolo_params(seed, widths=(80, 160, 320, 640, 640), repeats=(3, 6, 6, 3),
+                head_repeats=3, nc=1):
+    """YOLOv8's detect model in the layout of ``scripts/convert_yolo.py``
+    (numpy, each conv with its BatchNorm fused): HWIO weights normal with
+    variance 2 / fan_in, zero biases."""
+    rng = np.random.default_rng(seed)
+    p = {}
+
+    def conv(name, cin, cout, k):
+        p[f"{name}.w"] = (rng.standard_normal((k, k, cin, cout))
+                          * math.sqrt(2.0 / (k * k * cin))).astype(np.float32)
+        p[f"{name}.b"] = np.zeros(cout, np.float32)
+
+    def c2f(idx, cin, cout, n):
+        h = cout // 2
+        conv(f"{idx}.cv1", cin, cout, 1)
+        for j in range(n):
+            conv(f"{idx}.m.{j}.cv1", h, h, 3)
+            conv(f"{idx}.m.{j}.cv2", h, h, 3)
+        conv(f"{idx}.cv2", h * (2 + n), cout, 1)
+
+    c0, c1, c2, c3, c4 = widths
+    r0, r1, r2, r3 = repeats
+    conv("0", 3, c0, 3)
+    conv("1", c0, c1, 3)
+    c2f("2", c1, c1, r0)
+    conv("3", c1, c2, 3)
+    c2f("4", c2, c2, r1)
+    conv("5", c2, c3, 3)
+    c2f("6", c3, c3, r2)
+    conv("7", c3, c4, 3)
+    c2f("8", c4, c4, r3)
+    conv("9.cv1", c4, c4 // 2, 1)
+    conv("9.cv2", c4 // 2 * 4, c4, 1)
+    c2f("12", c4 + c3, c3, head_repeats)
+    c2f("15", c3 + c2, c2, head_repeats)
+    conv("16", c2, c2, 3)
+    c2f("18", c2 + c3, c3, head_repeats)
+    conv("19", c3, c3, 3)
+    c2f("21", c3 + c4, c4, head_repeats)
+    box_ch = max(16, c2 // 4, 4 * 16)
+    cls_ch = max(c2, min(nc, 100))
+    for lvl, ch in enumerate((c2, c3, c4)):
+        for branch, mid, out in (("cv2", box_ch, 4 * 16), ("cv3", cls_ch,
+                                                           nc)):
+            conv(f"22.{branch}.{lvl}.0", ch, mid, 3)
+            conv(f"22.{branch}.{lvl}.1", mid, mid, 3)
+            conv(f"22.{branch}.{lvl}.2", mid, out, 1)
+    return p
+
+
+def write_tower_weights(directory, dev, clip=CLIP_L14_336, dino=DINOV2_S14,
+                        sam=SAM_VIT_B, yolo=YOLOV8X):
+    """The four weights files under the names the entry points look for;
+    returns {file: (path, parameter count)}."""
+    gen = torch.Generator(device=dev).manual_seed(91)
+    dino_p = vit.init_dinov2_params(gen, device=dev, **dino)
+    for k in dino_p:
+        if k.endswith((".ls1", ".ls2")):
+            dino_p[k].fill_(DINOV2_LAYER_SCALE)
+    files = {
+        "clip_vitl14_336.npz": lambda: to_numpy({
+            **vit.init_clip_visual_params(gen, device=dev, **clip["visual"]),
+            **vit.init_clip_text_params(gen, device=dev, **clip["text"])}),
+        "dinov2_vits14.npz": lambda: to_numpy(dino_p),
+        "sam_vit_b.npz": lambda: sam_params(92, **sam),
+        "yolov8_objaware.npz": lambda: yolo_params(93, **yolo),
+    }
+    out = {}
+    for name, make in files.items():
+        arrays = make()
+        path = Path(directory) / name
+        np.savez(path, **arrays)
+        out[name] = (path, sum(a.size for a in arrays.values()
+                               if a.dtype == np.float32))
+        del arrays
+    del dino_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_flops(tokens, dim, blocks, attended=None):
+    """Multiply-adds x 2 of ``blocks`` pre-norm ViT blocks (MLP ratio 4)
+    over ``tokens``: 24 T D^2 for the products, 4 T_a^2 D / (T / T_a) for
+    attention over groups of ``attended`` tokens (windows; all by
+    default)."""
+    attended = attended or tokens
+    return blocks * (24 * tokens * dim ** 2 + 4 * tokens * attended * dim)
+
+
+def clip_block_layers(params, x, heads):
+    """Card ms of the pieces of CLIP's first visual block on tokens ``x``
+    [T, D] (median of REPS): the q/k/v products, the scores, the softmax,
+    the weighted sum, the output product, the MLP, the LayerNorms."""
+    p, pre = params, "visual.blocks.0"
+    t, d = x.shape
+    hd = d // heads
+    q = (x @ p[f"{pre}.attn.wq"]).reshape(t, heads, hd).transpose(0, 1)
+    att = torch.softmax(q @ q.transpose(-1, -2) / math.sqrt(hd), dim=-1)
+    return {
+        "layer norms (2)": 2 * median_ms(lambda: vit.layer_norm(
+            x, p[f"{pre}.ln1.scale"], p[f"{pre}.ln1.bias"], 1e-5)),
+        "q, k, v products": 3 * median_ms(
+            lambda: x @ p[f"{pre}.attn.wq"] + p[f"{pre}.attn.bq"]),
+        "scores q kT": median_ms(lambda: q @ q.transpose(-1, -2)),
+        "softmax": median_ms(lambda: torch.softmax(att, dim=-1)),
+        "weighted sum": median_ms(lambda: att @ q),
+        "output product": median_ms(
+            lambda: x @ p[f"{pre}.attn.wo"] + p[f"{pre}.attn.bo"]),
+        "MLP (two products, QuickGELU)": median_ms(lambda: vit.quick_gelu(
+            x @ p[f"{pre}.mlp.w1"] + p[f"{pre}.mlp.b1"]) @ p[f"{pre}.mlp.w2"]),
+        "whole block": median_ms(lambda: vit.clip_block(x, p, 0, heads)),
+    }
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| of a card tensor against a CPU one."""
+    ref = ref.float()
+    return float((got.cpu().float() - ref).abs().max() / ref.abs().max())
+
+
+def uint8_image(rgb):
+    return (rgb.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+
+
+def seeded_tokens(seed, length=9):
+    """77 CLIP ids: <sot>, ``length`` seeded vocabulary ids, <eot>, zeros
+    (the layout ``ClipTokenizer.encode`` gives)."""
+    ids = torch.randint(1, SOT, (length,),
+                        generator=torch.Generator().manual_seed(seed))
+    out = torch.zeros(77, dtype=torch.int64)
+    out[0], out[1:length + 1], out[length + 1] = SOT, ids, EOT
+    return out
+
+
+def tower_times(extractor, images):
+    """Host ms of each image through one extractor (synchronised)."""
+    out = []
+    for img in images:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extractor(img.astype(np.float32) / 255.0)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def host_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def segment_and_group(seg, views, metas, n):
+    """Every view through ``GroupingClassifier.associate`` (segmentation,
+    composite, front-most Gaussians, bank matching): the matched-label
+    masks, the classifier and the host ms per view."""
+    gc = grouping.GroupingClassifier(n, segmentation=seg)
+    matched, ms = [], []
+    for img, meta in zip(views, metas):
+        m, t = host_ms(lambda: gc.associate(img, meta))
+        matched.append(m)
+        ms.append(t)
+    return matched, gc, ms
+
+
+def tower_path(fdata, dev, vertex_latents, ckpt_decoder):
+    """Main path 8: the feature towers at their released shapes.  Extract
+    clip-vit and dinov2 maps from the four bench images with
+    ``FeatureDatamanager`` (cached, read back), train rade-features on them
+    (``"xla"``), embed a text query with the CLIP text tower and score path
+    7's mesh vertices and a rendered view, segment the views with SAM
+    prompted by YOLOv8 boxes and group 1M Gaussians over them; all with
+    every launch count at 0 just before and read just after.  Then every
+    kernel on a step's own inputs, the repeats (same bits), and each tower
+    card against CPU.  Returns the launches and the kernels' errors."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_towers_"))
+    env = os.environ.get("COLLAB_SPLATS_WEIGHTS")
+    try:
+        t0 = time.perf_counter()
+        weights = write_tower_weights(tmp, dev)
+        say("tower weights (seeded, the converters' layouts, released "
+            "shapes): " + ", ".join(
+                f"{name} {count / 1e6:.1f}M parameters"
+                for name, (_, count) in weights.items())
+            + f"; written in {time.perf_counter() - t0:.1f} s")
+        os.environ["COLLAB_SPLATS_WEIGHTS"] = str(tmp)
+        extractors._default_extractor.cache_clear()
+        return _tower_path(fdata, dev, vertex_latents, ckpt_decoder,
+                           weights, tmp)
+    finally:
+        extractors._default_extractor.cache_clear()
+        if env is None:
+            os.environ.pop("COLLAB_SPLATS_WEIGHTS", None)
+        else:
+            os.environ["COLLAB_SPLATS_WEIGHTS"] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _tower_path(fdata, dev, vertex_latents, ckpt_decoder, weights, tmp):
+    images = [uint8_image(im) for im in fdata.images]
+    base = FullImageDatamanager(fdata.cams, [], images, [])
+    fcfg = feature_dm.FeatureDatamanagerConfig(
+        feature_type="clip-vit", extractors=("clip-vit", "dinov2"),
+        final_resolution=64, cache_dir=str(tmp / "cache"))
+    bench = make_scene("bench", dev)
+    gparams, galive, gcams, gcfg = bench
+    if galive.shape[0] != GROUPING_GAUSSIANS:
+        raise AssertionError("grouping scene: wrong size")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    # 1. Extraction, cached.
+    dm, extract_ms = host_ms(lambda: feature_dm.FeatureDatamanager(
+        base, fcfg, device=dev))
+    extract_peak = torch.cuda.max_memory_allocated()
+    for name, ext in dm._extractors.items():
+        if not (ext.pretrained and ext.device.type == dev.type):
+            raise AssertionError(f"{name}: not the converted weights on "
+                                 f"{dev}")
+    # 2. rade-features training on the extracted maps.
+    data = fdata._replace(feats=dm.train_features)
+    dims = tuple(dm.feature_dims.items())
+    tr = feature_trainer(data, dev, refine_every=10 ** 6,
+                         feature_dims=dims)
+    start = tr.state()
+    hist, step_ms = [], []
+    for _ in range(TOWER_STEPS):
+        _, t = host_ms(lambda: tr.train(1, log_every=10 ** 9))
+        hist.append(tr.history[-1])
+        step_ms.append(t)
+    # 3. The text query: path 7's mesh vertices, a rendered view.
+    clip = dm.text_encoder()
+    tokens = torch.stack([seeded_tokens(s) for s in (1, 2)]).to(dev)
+    with torch.no_grad():
+        emb = torch.stack([vit.clip_text_forward(clip.params, t,
+                                                 clip.text_heads)
+                           for t in tokens])
+        emb = emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)
+        model = tr.config.model
+        vsim = rade_features.query_vertices(
+            ckpt_decoder, torch.as_tensor(vertex_latents, device=dev), emb,
+            1, model)
+        out, _ = rade_gs.get_outputs(tr.params, tr.alive, fdata.cams[0],
+                                     tr.step, model, training=False)
+        smap = rade_features.similarity_map(tr.decoder, out, emb, 1, model)
+    # 4. Segmentation and grouping over the four views.
+    sam = sam_predictor.SamBackend(str(weights["sam_vit_b.npz"][0]),
+                                   device=dev)
+    det = yolo.ObjectAwareDetector(str(weights["yolov8_objaware.npz"][0]),
+                                   device=dev)
+    seg = segmentation.Segmentation(
+        backend=segmentation.object_segment_image(sam, det))
+    metas, views = [], []
+    with torch.no_grad():
+        for cam in gcams:
+            o, meta = rade_gs.get_outputs(gparams, galive, cam, 0, gcfg,
+                                          training=False)
+            metas.append(meta)
+            views.append(uint8_image(o["rgb"]))
+    matched, gc, group_ms = segment_and_group(seg, views, metas,
+                                              GROUPING_GAUSSIANS)
+    labels = gc.gaussian_labels()
+    torch.cuda.synchronize()
+    launches = counts()
+    path_peak = torch.cuda.max_memory_allocated()
+
+    n_steps = TOWER_STEPS
+    want = {k: 0 for k in launches}
+    want.update(decode=n_steps + 1 + len(gcams),
+                composite=n_steps + 1 + len(gcams), composite_bwd=n_steps,
+                segment_sum=2 * n_steps)
+    if launches != want:
+        raise AssertionError(f"path 8: launches {launches}, expected {want}")
+
+    # What came out: the maps' shapes, the cache read back to the bits.
+    for name, shape in TOWER_MAPS.items():
+        for i, fm in enumerate(dm.train_features):
+            if tuple(fm[name].shape) != shape or not bool(
+                    torch.isfinite(fm[name]).all()):
+                raise AssertionError(f"{name} map {i}: "
+                                     f"{tuple(fm[name].shape)}, want {shape}")
+    cache_files = sorted((tmp / "cache").iterdir())
+    dm_read, read_ms = host_ms(lambda: feature_dm.FeatureDatamanager(
+        base, fcfg, device=dev))
+    for a, b in zip(dm.train_features, dm_read.train_features):
+        for name in a:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"feature cache: {name} read back "
+                                     "differs")
+    check_features_falling(hist, "main path 8")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("path 8: a loss is not finite")
+    for what, s in (("vertex similarities", vsim), ("similarity map", smap)):
+        if not (bool(torch.isfinite(s).all()) and float(s.min()) >= 0.0
+                and float(s.max()) <= 1.0):
+            raise AssertionError(f"path 8: {what} not finite in [0, 1]")
+    if smap.shape != (fdata.cams[0].height, fdata.cams[0].width, 1) or \
+            vsim.shape != (len(vertex_latents),):
+        raise AssertionError("path 8: similarity shapes")
+    for i, m in enumerate(matched):
+        if m.shape != (gcams[i].height, gcams[i].width):
+            raise AssertionError(f"grouping view {i}: mask {m.shape}")
+    if labels.shape != (GROUPING_GAUSSIANS,):
+        raise AssertionError("grouping: label shape")
+    ext_ms = {name: tower_times(ext, images)
+              for name, ext in dm._extractors.items()}
+    tokens_per, flops = {}, {}
+    for name, ext in dm._extractors.items():
+        _, ph, pw = extractors._prep_image(
+            images[0], ext.resolution, ext.patch_size, ext.mean, ext.std,
+            dev)
+        tokens_per[name] = ph * pw + 1
+        pre = "visual." if name == "clip-vit" else ""
+        flops[name] = vit_flops(
+            tokens_per[name], ext.params[f"{pre}patch_embed.w"].shape[1],
+            int(ext.params[f"{pre}n_blocks"]))
+    say(f"main path 8 (feature towers, released shapes, weights through "
+        f"their npz files): FeatureDatamanager over {len(images)} images "
+        f"at {images[0].shape[1]}x{images[0].shape[0]}, maps "
+        + ", ".join(f"{k} {v}" for k, v in dm.feature_dims.items())
+        + f"; extraction {extract_ms:.1f} ms with the cache write, read "
+        f"back bit-identical in {read_ms:.1f} ms ({cache_files[0].name}, "
+        f"{cache_files[0].stat().st_size / 2 ** 20:.1f} MiB); per image "
+        + "; ".join(f"{k} ({tokens_per[k]} tokens, {flops[k] / 1e12:.3f} "
+                    f"TFLOP) median {statistics.median(v):.2f} ms (min "
+                    f"{min(v):.2f}, max {max(v):.2f}; "
+                    f"{flops[k] / statistics.median(v) / 1e9:.1f} TFLOP/s)"
+                    for k, v in ext_ms.items())
+        + f"; peak device memory {extract_peak / 2 ** 30:.2f} GiB in the "
+        f"extraction, {path_peak / 2 ** 30:.2f} GiB in the path; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    say(f"path 8 training: {n_steps} rade-features steps (xla) on the "
+        f"extracted maps, losses " + ", ".join(
+            f"{h['loss']:.5f}" for h in hist)
+        + f"; step median {statistics.median(step_ms):.2f} ms (host clock)")
+    say(f"path 8 query: the CLIP text tower "
+        f"({int(clip.params['text.n_blocks'])} blocks, width "
+        f"{clip.params['text.ln_final.scale'].shape[0]}) on two "
+        f"seeded 77-id sequences, called directly: the BPE vocabulary is not "
+        f"in the repository, so encode_text would take its offline branch; "
+        f"query_vertices over {len(vertex_latents)} vertices of path 7's "
+        f"mesh_features.npz (path 5's decoder) in [{float(vsim.min()):.4f}, "
+        f"{float(vsim.max()):.4f}], similarity_map of camera 0 "
+        f"{tuple(smap.shape)} in [{float(smap.min()):.4f}, "
+        f"{float(smap.max()):.4f}]")
+
+    # The CLIP tower's first block, piece by piece, at the extraction's
+    # 2,994 tokens.
+    with torch.no_grad():
+        ext = dm._extractors["clip-vit"]
+        img, ph, pw = extractors._prep_image(
+            images[0].astype(np.float32) / 255.0, ext.resolution,
+            ext.patch_size, ext.mean, ext.std, dev)
+        x = torch.cat([ext.params["visual.class_embedding"][None],
+                       vit.patchify(img, ext.patch_size)
+                       @ ext.params["visual.patch_embed.w"]])
+        pieces = clip_block_layers(ext.params, x, ext.num_heads)
+        del x, img
+    say(f"path 8 CLIP block 0 at {ph * pw + 1} tokens (card, median of "
+        f"{REPS}, ms): " + ", ".join(f"{k} {v:.4f}"
+                                     for k, v in pieces.items()))
+
+    # Stage times of segmentation (outside the counted run).
+    _, det_ms = host_ms(lambda: det(views[0]))
+    boxes, confs = det(views[0])
+    _, enc_ms = host_ms(lambda: sam.set_image(views[0]))
+    sam_dim = sam.params["enc.patch_embed.b"].shape[0]
+    n_glob = len(sam.params["enc.global_blocks"])
+    n_win = int(sam.params["enc.n_blocks"]) - n_glob
+    enc_flops = (vit_flops(25 * 196, sam_dim, n_win, attended=196)
+                 + vit_flops(4096, sam_dim, n_glob))
+    _, dec_ms = host_ms(lambda: sam.predict_boxes(boxes[:64]))
+    results, seg_ms = host_ms(lambda: seg.auto_segment_image(views[0]))
+    comp, comp_ms = host_ms(lambda: segmentation.create_composite_mask(
+        results, 0.85))
+    _, group0_ms = host_ms(lambda: grouping.GroupingClassifier(
+        GROUPING_GAUSSIANS, segmentation=seg).associate(
+            views[0], metas[0], composite_mask=comp))
+    n_masks = [int(m.max()) for m in matched]
+    say(f"path 8 segmentation and grouping: {len(views)} views at "
+        f"{views[0].shape[1]}x{views[0].shape[0]}, YOLOv8x boxes then SAM "
+        f"ViT-B masks (object_segment_image); view 0: detector "
+        f"{det_ms:.2f} ms ({len(boxes)} boxes after NMS), encoder "
+        f"{enc_ms:.2f} ms ({enc_flops / 1e12:.3f} TFLOP in its blocks, "
+        f"{enc_flops / enc_ms / 1e9:.1f} TFLOP/s), decoder and postprocess "
+        f"of 64 boxes "
+        f"{dec_ms:.2f} ms (host clock); auto_segment_image {seg_ms:.0f} ms "
+        f"({len(results)} masks), create_composite_mask {comp_ms:.0f} ms, "
+        f"the grouping given the composite {group0_ms:.0f} ms; associate "
+        f"per view "
+        + ", ".join(f"{t:.0f}" for t in group_ms)
+        + f" ms; matched objects per view {n_masks}, {gc.num_objects} "
+        f"objects in the bank, {int((labels >= 0).sum())} of "
+        f"{GROUPING_GAUSSIANS} Gaussians labelled")
+
+    # Every kernel of the step on its own inputs.
+    tr.load_state(start)
+    _, kin = train_layer_times(tr)
+    tr.load_state(start)
+    errs = check_step_kernels(kin, False, "path 8 rade-features step",
+                              tr.config.model.render.stop_threshold)
+    del tr, start, kin
+    torch.cuda.empty_cache()
+
+    # Repeats: the extraction without the cache, the segmentation and the
+    # grouping from scratch, to the same bits.
+    dm2 = feature_dm.FeatureDatamanager(
+        base, dataclasses.replace(fcfg, cache_dir=None), device=dev)
+    for a, b in zip(dm.train_features, dm2.train_features):
+        for name in a:
+            if not torch.equal(a[name], b[name]):
+                raise AssertionError(f"repeated extraction: {name} differs")
+    matched2, gc2, _ = segment_and_group(seg, views, metas,
+                                         GROUPING_GAUSSIANS)
+    if not all(np.array_equal(a, b) for a, b in zip(matched, matched2)) or \
+            not np.array_equal(gc.votes, gc2.votes) or \
+            not np.array_equal(labels, gc2.gaussian_labels()):
+        raise AssertionError("repeated segmentation and grouping differ")
+    say("path 8 determinism: a repeated extraction (no cache), "
+        "segmentation and grouping gave the same bits (maps, matched "
+        "masks, votes, labels)")
+    del dm2, gc2, matched2
+
+    # Each tower on the card against the port's own module on the CPU.
+    torch.set_num_threads(8)
+    rng = np.random.default_rng(17)
+    img224 = torch.as_tensor(rng.normal(size=(224, 224, 3)),
+                             dtype=torch.float32)
+    errs_cpu = {}
+    dino = dm._extractors["dinov2"]
+    dino_cpu = extractors.DINOv2Extractor(
+        weights_npz=str(weights["dinov2_vits14.npz"][0]), device="cpu")
+    with torch.no_grad():
+        errs_cpu["dinov2 (224x224)"] = rel_err(
+            vit.dinov2_forward(dino.params, img224.to(dev), dino.num_heads,
+                               14),
+            vit.dinov2_forward(dino_cpu.params, img224, dino_cpu.num_heads,
+                               14))
+        del dino_cpu
+        clip_cpu = extractors.MaskCLIPExtractor(
+            weights_npz=str(weights["clip_vitl14_336.npz"][0]), device="cpu")
+        errs_cpu["clip visual (224x224)"] = rel_err(
+            vit.maskclip_forward(clip.params, img224.to(dev), clip.num_heads,
+                                 14),
+            vit.maskclip_forward(clip_cpu.params, img224, clip_cpu.num_heads,
+                                 14))
+        errs_cpu["clip text (77 ids)"] = rel_err(
+            vit.clip_text_forward(clip.params, tokens[0], clip.text_heads),
+            vit.clip_text_forward(clip_cpu.params, tokens[0].cpu(),
+                                  clip_cpu.text_heads))
+        del clip_cpu
+        sam_cpu = sam_predictor.SamBackend(
+            str(weights["sam_vit_b.npz"][0]), device="cpu")
+        img1024 = torch.as_tensor(rng.normal(size=(1024, 1024, 3)),
+                                  dtype=torch.float32)
+        emb_card = sam_mod.sam_encoder_forward(sam.params, img1024.to(dev))
+        errs_cpu["sam encoder (1024)"] = rel_err(
+            emb_card, sam_mod.sam_encoder_forward(sam_cpu.params, img1024))
+        box = torch.tensor([[100.0, 200.0, 700.0, 600.0]])
+        low, iou = sam_mod.mask_decoder_forward(
+            sam.params, emb_card, sam._pe,
+            sam_mod.encode_boxes(sam.params, box.to(dev)))
+        low_c, iou_c = sam_mod.mask_decoder_forward(
+            sam_cpu.params, emb_card.cpu(), sam_cpu._pe,
+            sam_mod.encode_boxes(sam_cpu.params, box))
+        errs_cpu["sam decoder (one box)"] = max(rel_err(low, low_c),
+                                                rel_err(iou, iou_c))
+        del sam_cpu, emb_card
+        det_cpu = yolo.ObjectAwareDetector(
+            str(weights["yolov8_objaware.npz"][0]), device="cpu")
+        padded, _ = det.letterbox(views[0])
+        b_card, s_card = yolo.yolo_forward(det.params, padded)
+        b_cpu, s_cpu = yolo.yolo_forward(det_cpu.params, padded.cpu())
+        errs_cpu[f"yolov8x head ({padded.shape[1]}x{padded.shape[0]} "
+                 f"letterbox, boxes, scores)"] = max(rel_err(b_card, b_cpu),
+                                                     rel_err(s_card, s_cpu))
+        del det_cpu
+    say("path 8 card against CPU (the port's own modules, max abs err / "
+        f"max|ref|, limit {TOWER_LIMIT:g}): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs_cpu.items()))
+    bad = {k: v for k, v in errs_cpu.items() if not v <= TOWER_LIMIT}
+    if bad:
+        raise AssertionError(f"path 8 card against CPU over the limit: {bad}")
+    return {"launches": launches, "errs": errs}
 
 
 def main() -> int:
@@ -2433,17 +3078,22 @@ def main() -> int:
     fx = feature_step_path(fdata, dev, "xla")
     fp = feature_step_path(fdata, dev, "pallas")
     prog_launches = progressive_phase(fdata, dev)
-    mesh_cams, mesh_render = fdata.cams, fdata.render
-    del fdata
     torch.cuda.empty_cache()
 
     # Main path 7, mesh extraction from path 5's checkpoint (deleted
     # after); then the meshing paths on small scenes against the CPU.
-    mesh_launches = mesh_path(dev, fx["ckpt"], mesh_cams, mesh_render)
+    mesh_launches, vertex_latents, ckpt_decoder = mesh_path(
+        dev, fx["ckpt"], fdata.cams, fdata.render)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    del mesh_cams
     torch.cuda.empty_cache()
     mesh_small_scenes(dev, scenes)
+
+    # Main path 8, the feature towers: extraction from path 5's images,
+    # training on the maps, the text query over path 7's mesh, segmentation
+    # and grouping.
+    tw = tower_path(fdata, dev, vertex_latents, ckpt_decoder)
+    del fdata, vertex_latents, ckpt_decoder
+    torch.cuda.empty_cache()
     for backend, f in (("xla", fx), ("pallas", fp)):
         say(f"layers of the rade-features {backend} train step, bench scene "
             f"camera 0 (median of {REPS}, ms): " + ", ".join(
@@ -2642,18 +3292,20 @@ def main() -> int:
         f"{segsum_kernel.LONG_ROWS}")
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
-    # launches summed over the training main paths and mesh extraction.
+    # launches summed over the training main paths, mesh extraction and
+    # the feature towers.
     path_launches = {"path 2 (xla)": launches, "path 4 (pallas)": plaunches,
                      "path 5 (rade-features, xla)": fx["launches"],
                      "path 6 (rade-features, pallas)": fp["launches"],
                      "progressive resolution": prog_launches,
-                     "path 7 (mesh extraction)": mesh_launches}
-    say("launches per training and meshing main path: " + "; ".join(
+                     "path 7 (mesh extraction)": mesh_launches,
+                     "path 8 (feature towers)": tw["launches"]}
+    say("launches per training, meshing and tower main path: " + "; ".join(
         f"{k}: { {n: v for n, v in p.items() if v} }"
         for k, p in path_launches.items()))
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in launches}
-    feature_errs = [fx["errs"], fp["errs"]]
+    feature_errs = [fx["errs"], fp["errs"], tw["errs"]]
     kernels = []
     for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",

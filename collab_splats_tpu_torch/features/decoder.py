@@ -128,14 +128,17 @@ def jax_layout(key: str, x: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _resample_matrix(n_in: int, n_out: int, device: torch.device):
+def _resample_matrix(n_in: int, n_out: int, device: torch.device,
+                     antialias: bool = True):
     """[n_out, n_in] float32 weights of JAX's ``compute_weight_mat`` for
     the triangle kernel: half-pixel centres, the kernel widened by 1/scale
-    when downsampling (antialias), columns normalised, samples outside the
-    input zeroed.  Computed once per shape and device, in float32 as JAX
-    computes it; read-only."""
+    when downsampling with ``antialias``, columns normalised, samples
+    outside the input zeroed.  Computed once per shape and device, in
+    float32 as JAX computes it; read-only.  XLA may fuse a multiply-add
+    where numpy rounds twice, so a sample position near n can differ by
+    half an ulp of n (a weight by 3e-5 at n = 512)."""
     inv = np.float32(1.0 / (n_out / n_in))
-    kernel_scale = max(inv, np.float32(1.0))
+    kernel_scale = max(inv, np.float32(1.0)) if antialias else np.float32(1.0)
     sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv \
         - np.float32(0.5)
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) \
@@ -149,16 +152,30 @@ def _resample_matrix(n_in: int, n_out: int, device: torch.device):
     return torch.as_tensor(np.ascontiguousarray(w.T), device=device)
 
 
-def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of [H, W, C] to (H', W'): ``jax.image.resize(...,
-    method="linear")`` (half-pixel centres, antialiased when it
-    downsamples).  An axis whose size is kept is left as it is."""
-    h, w, c = x.shape
-    if h != size[0]:
-        m = _resample_matrix(h, size[0], x.device)
-        x = (m @ x.reshape(h, w * c)).reshape(size[0], w, c)
-    if w != size[1]:
-        x = torch.matmul(_resample_matrix(w, size[1], x.device), x)
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    axes: Tuple[int, int] = (0, 1),
+                    antialias: bool = True) -> torch.Tensor:
+    """Bilinear resize of ``x``'s two ``axes`` to ``size``: JAX's
+    ``jax.image.resize(..., method="linear", antialias=antialias)`` (half-
+    pixel centres; with ``antialias``, JAX's default, the kernel widens
+    when it downsamples).  The default axes take [H, W, C] to (H', W').
+    Each axis whose size changes is one product with its resampling
+    matrix; an axis whose size is kept is left as it is."""
+    for axis, n_out in zip(axes, size):
+        axis %= x.dim()
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        m = _resample_matrix(n_in, n_out, x.device, antialias)
+        if axis == x.dim() - 1:
+            x = x @ m.T
+            continue
+        shape = list(x.shape)
+        pre = math.prod(shape[:axis])
+        x = torch.matmul(m, x.reshape(pre, n_in, -1)) if pre > 1 else \
+            (m @ x.reshape(n_in, -1))
+        shape[axis] = n_out
+        x = x.reshape(shape)
     return x
 
 

@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, nothing of the JAX package, the card by
-default."""
+"""The port stands alone: no JAX, nothing of the JAX package or of
+``scripts/``, the card by default."""
 
 import ast
 import pkgutil
@@ -29,7 +29,9 @@ from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(collab_splats_tpu_torch.__file__).parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "collab_splats_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "collab_splats_tpu",
+             # the converters under scripts/, which only the tests import
+             "scripts", "convert_weights", "convert_sam", "convert_yolo"}
 
 
 def port_modules():
@@ -45,7 +47,11 @@ def test_every_module_imports_without_jax():
               "train.trainer", "meshing.marching", "meshing._native",
               "meshing.repair", "meshing.align", "meshing.tsdf",
               "meshing.transfer", "meshing.poisson", "meshing.exporters",
-              "utils.metrics"):
+              "utils.metrics", "features.decoder", "features.weights",
+              "features.clip_tokenizer", "features.vit",
+              "features.extractors", "features.datamanager", "features.sam",
+              "features.sam_predictor", "features.yolo",
+              "features.segmentation", "features.grouping"):
         assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]
@@ -104,3 +110,38 @@ def test_card_default_raises_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+@pytest.mark.parametrize("entry", [
+    "DINOv2Extractor", "MaskCLIPExtractor", "SamBackend",
+    "ObjectAwareDetector", "FeatureDatamanager"])
+def test_feature_entries_need_a_card_or_the_cpu(monkeypatch, tmp_path,
+                                                entry):
+    """The towers' entry points run on the card unless asked for the CPU;
+    SAM and the detector are given a weights file, so they reach the
+    device choice."""
+    from collab_splats_tpu_torch.data.datamanager import FullImageDatamanager
+    from collab_splats_tpu_torch.features import (datamanager, extractors,
+                                                  sam_predictor, yolo)
+
+    npz = tmp_path / "w.npz"
+    np.savez(npz, **{"prompt.pe_gauss": np.zeros((2, 128), np.float32)})
+    base = FullImageDatamanager([None], [], [np.zeros((8, 8, 3), np.uint8)],
+                                [])
+    cfg = datamanager.FeatureDatamanagerConfig(
+        feature_type="hash-proj", extractors=("hash-proj",))
+    make = {
+        "DINOv2Extractor": lambda **kw: extractors.DINOv2Extractor(
+            offline_blocks=1, **kw),
+        "MaskCLIPExtractor": lambda **kw: extractors.MaskCLIPExtractor(
+            offline_blocks=1, offline_width=64, **kw),
+        "SamBackend": lambda **kw: sam_predictor.SamBackend(str(npz), **kw),
+        "ObjectAwareDetector": lambda **kw: yolo.ObjectAwareDetector(
+            str(npz), **kw),
+        "FeatureDatamanager": lambda **kw: datamanager.FeatureDatamanager(
+            base, cfg, **kw),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
