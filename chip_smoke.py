@@ -9,7 +9,7 @@ the four compositing kernels also on the seeded edge cases of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 ``backend="pallas"`` render against the ``"xla"`` render.  Then it drives
-the port's eight main paths:
+the port's ten main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -57,7 +57,28 @@ the port's eight main paths:
    mesh and a rendered view, and ``GroupingClassifier`` groups the bench
    scene's 1M Gaussians over the four views, segmented by SAM prompted
    with YOLOv8 boxes; the extraction, segmentation and grouping repeated
-   to the same bits, and each tower held card against CPU.
+   to the same bits, and each tower held card against CPU;
+9. the trainer's options on path 2's scene (1M Gaussians at capacity
+   1,262,144, sh_degree 3, 1280x720, four cameras): twelve steps with
+   ``optimize_camera_poses`` and ``use_bilateral_grid``, the depth-normal
+   loss from step 4, an eval image every four steps with LPIPS on seeded
+   VGG16 weights (the converter's layout, found through
+   ``COLLAB_SPLATS_WEIGHTS``), JSONL and TensorBoard writers read back, and
+   ``dataset_hbm_budget_bytes=0`` so every frame streams from pinned host
+   memory; the same steps cached on the card give the same bits, a
+   repeated step too, every kernel holds on a step's own inputs,
+   ``render_tiled_batch`` equals four single renders, and each option's
+   layer is timed;
+10. the ``Splatter`` pipeline on a dataset that ``write_synthetic_dataset``
+   renders from the bench scene (ten orbit cameras at 1280x720 through the
+   port's PNG codec, 262,144 means in sparse.ply): RaDe-GS at capacity
+   1,048,576 and sh_degree 3 trained to step 10, then asked for 20 (the
+   resume reaches the bits of 20 steps at once), ``mesh()`` (TSDF with
+   floor alignment; a second call skips), ``load_model``,
+   ``load_aligned_cameras``, ``plot_mesh``, one HTTP request to the viewer
+   (its PNG equal to the direct render), rade-features with the towers'
+   seeded weights (12 steps, a mesh, ``query_mesh`` in [0, 1] and
+   repeatable), and the CLI re-run skipping every stage.
 
 It checks what comes out, the kernels each path launches (path 7 needs
 ``cpp/libmesh_repair.so``, built at first use), and prints
@@ -97,7 +118,8 @@ from scipy.spatial import cKDTree
 
 from collab_splats_tpu_torch.core import compositing
 from collab_splats_tpu_torch.core.options import RenderOptions
-from collab_splats_tpu_torch.core.projection import project_gaussians
+from collab_splats_tpu_torch.core.projection import (covariance3d,
+                                                     project_gaussians)
 from collab_splats_tpu_torch.data import (compositing_cases, decode_plans,
                                           synthetic)
 from collab_splats_tpu_torch.data.datamanager import FullImageDatamanager
@@ -1525,6 +1547,22 @@ def reset_counts():
     composite.launches = composite.bwd_launches = 0
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (a check against a plain version, a timing
+    repeat) leave every count as it was before the block."""
+    saved = counts()
+    try:
+        yield
+    finally:
+        binning_kernel.launches = saved["decode"]
+        batched.launches = saved["composite"]
+        batched.bwd_launches = saved["composite_bwd"]
+        segsum_kernel.launches = saved["segment_sum"]
+        composite.launches = saved["composite_tiles"]
+        composite.bwd_launches = saved["composite_tiles_bwd"]
+
+
 def train_main_path(tr, steps, refine_at):
     """A training main path: ``steps`` steps through ``Trainer.train``
     with every launch count at 0 just before and read just after; the
@@ -1590,8 +1628,8 @@ def check_determinism(tr):
         s = tr.state()
         moments = [v for st in s["optimizer"]["state"].values()
                    for k, v in sorted(st.items()) if k != "step"]
-        return [*s["params"].values(), *(s["decoder"] or {}).values(),
-                *s["strat_state"], *moments]
+        return [*s["params"].values(), *s["camera_params"].values(),
+                *(s["decoder"] or {}).values(), *s["strat_state"], *moments]
 
     a = run()
     tr.load_state(snap)
@@ -1606,8 +1644,10 @@ def check_determinism(tr):
                              "warnings above name the ops PyTorch knows "
                              "to be nondeterministic)")
     say(f"determinism: step {snap['step']} run twice from the same state "
-        f"gave bit-identical parameters ({len(snap['params'])} tensors), "
-        f"Adam moments and statistics")
+        f"gave bit-identical parameters ({len(snap['params'])} tensors"
+        + (f", per-camera {sorted(snap['camera_params'])}"
+           if snap["camera_params"] else "")
+        + "), Adam moments and statistics")
 
 
 def refine_times(tr):
@@ -1662,14 +1702,16 @@ def fitting_run(dev):
 
 
 @contextlib.contextmanager
-def captured(module, name):
+def captured(module, name, limit=None):
     """Collects the arguments of every call of ``module.name`` made inside
     the block (for a backward kernel under autograd: the step's own inputs
-    and the loss's cotangent)."""
+    and the loss's cotangent); with ``limit``, of the first ``limit``
+    calls only."""
     seen, real = [], getattr(module, name)
 
     def call(*args, **kwargs):
-        seen.append(args)
+        if limit is None or len(seen) < limit:
+            seen.append(args)
         return real(*args, **kwargs)
 
     setattr(module, name, call)
@@ -2570,16 +2612,13 @@ def segment_and_group(seg, views, metas, n):
     return matched, gc, ms
 
 
-def tower_path(fdata, dev, vertex_latents, ckpt_decoder):
-    """Main path 8: the feature towers at their released shapes.  Extract
-    clip-vit and dinov2 maps from the four bench images with
-    ``FeatureDatamanager`` (cached, read back), train rade-features on them
-    (``"xla"``), embed a text query with the CLIP text tower and score path
-    7's mesh vertices and a rendered view, segment the views with SAM
-    prompted by YOLOv8 boxes and group 1M Gaussians over them; all with
-    every launch count at 0 just before and read just after.  Then every
-    kernel on a step's own inputs, the repeats (same bits), and each tower
-    card against CPU.  Returns the launches and the kernels' errors."""
+@contextlib.contextmanager
+def tower_weights(dev):
+    """A temporary directory outside the checkout holding the four tower
+    weights files, with ``COLLAB_SPLATS_WEIGHTS`` pointing there while the
+    block runs (paths 8 to 10 find their weights through it); yields
+    (directory, {file: (path, parameter count)}).  The directory is
+    deleted and the variable put back after."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_towers_"))
     env = os.environ.get("COLLAB_SPLATS_WEIGHTS")
     try:
@@ -2592,8 +2631,7 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder):
             + f"; written in {time.perf_counter() - t0:.1f} s")
         os.environ["COLLAB_SPLATS_WEIGHTS"] = str(tmp)
         extractors._default_extractor.cache_clear()
-        return _tower_path(fdata, dev, vertex_latents, ckpt_decoder,
-                           weights, tmp)
+        yield tmp, weights
     finally:
         extractors._default_extractor.cache_clear()
         if env is None:
@@ -2604,7 +2642,17 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder):
         torch.cuda.empty_cache()
 
 
-def _tower_path(fdata, dev, vertex_latents, ckpt_decoder, weights, tmp):
+def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
+    """Main path 8: the feature towers at their released shapes.  Extract
+    clip-vit and dinov2 maps from the four bench images with
+    ``FeatureDatamanager`` (cached, read back), train rade-features on them
+    (``"xla"``), embed a text query with the CLIP text tower and score path
+    7's mesh vertices and a rendered view, segment the views with SAM
+    prompted by YOLOv8 boxes and group 1M Gaussians over them; all with
+    every launch count at 0 just before and read just after.  Then every
+    kernel on a step's own inputs, the repeats (same bits), and each tower
+    card against CPU.  The weights are ``tower_weights``'s, in ``tmp``.
+    Returns the launches and the kernels' errors."""
     images = [uint8_image(im) for im in fdata.images]
     base = FullImageDatamanager(fdata.cams, [], images, [])
     fcfg = feature_dm.FeatureDatamanagerConfig(
@@ -2893,6 +2941,624 @@ def _tower_path(fdata, dev, vertex_latents, ckpt_decoder, weights, tmp):
     return {"launches": launches, "errs": errs}
 
 
+# ------------------------------------------- main path 9: trainer options
+# The bench training scene (path 2's) with pose optimisation and bilateral
+# grids on, the depth-normal loss from step 4, an eval image every 4 steps
+# with LPIPS on seeded VGG16 weights, JSONL and TensorBoard writers, and
+# every frame streamed from pinned host memory (budget 0).
+OPTIONS_STEPS = 12
+OPTIONS_REG_FROM = 4
+OPTIONS_EVAL_EVERY = 4
+PLAIN_STEPS = 6          # steps of the same trainer without the options
+VGG16_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512,
+                512)
+VGG16_STAGE_ENDS = (1, 3, 6, 9, 12)
+
+
+def write_vgg16_weights(directory, dev):
+    """VGG16 LPIPS weights at the released shapes in
+    ``scripts/convert_weights.py``'s layout (conv{j}.w [out, in, 3, 3],
+    conv{j}.b, lin{i} over each stage's channels), drawn from a seeded
+    generator (He-scaled normal convolutions, uniform heads); returns the
+    parameter count."""
+    gen = torch.Generator(device=dev).manual_seed(94)
+    out, cin = {}, 3
+    for j, cout in enumerate(VGG16_WIDTHS):
+        out[f"conv{j}.w"] = torch.randn((cout, cin, 3, 3), generator=gen,
+                                        device=dev) * math.sqrt(2 / (9 * cin))
+        out[f"conv{j}.b"] = 0.01 * torch.randn(cout, generator=gen,
+                                               device=dev)
+        cin = cout
+    for i, j in enumerate(VGG16_STAGE_ENDS):
+        out[f"lin{i}"] = torch.rand(VGG16_WIDTHS[j], generator=gen,
+                                    device=dev)
+    arrays = to_numpy(out)
+    np.savez(Path(directory) / "vgg16_lpips.npz", **arrays)
+    return sum(a.size for a in arrays.values())
+
+
+def vgg16_flops(height, width):
+    """Multiply-adds x 2 of VGG16's thirteen 3x3 convolutions on one
+    image: 2 * 9 * H * W * C_in * C_out per convolution, the size halved
+    after each of the first four stages."""
+    flops, cin, h, w = 0, 3, height, width
+    for j, cout in enumerate(VGG16_WIDTHS):
+        flops += 2 * 9 * h * w * cin * cout
+        cin = cout
+        if j in VGG16_STAGE_ENDS[:4]:
+            h, w = h // 2, w // 2
+    return flops
+
+
+def device_breakdown(fn, reps=3, top=8):
+    """A ``torch.profiler`` trace of ``reps`` calls of ``fn`` after one
+    untraced call.  Returns (host ms per call, card ms per call: the sum of
+    the kernels' durations, [(op and input shapes, self card ms per call,
+    calls per call)] of the ``top`` aten ops by the card time of the kernels
+    they launch themselves)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def card_us(e):
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+    events = prof.key_averages(group_by_input_shape=True)
+    card = sum(card_us(e) for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    ops = sorted(((f"{e.key}{list(e.input_shapes) if e.input_shapes else ''}",
+                   card_us(e) / 1e3 / reps, e.count / reps)
+                  for e in events if e.key.startswith("aten::")
+                  and card_us(e) > 0), key=lambda r: -r[1])
+    return host, card, ops[:top]
+
+
+def say_breakdown(what, breakdown):
+    host, card, ops = breakdown
+    if card == 0:
+        say(f"{what}: torch.profiler saw no card time (host {host:.4f} ms)")
+        return
+    say(f"{what} (torch.profiler, ms per call): host {host:.4f}, card "
+        f"{card:.4f} (idle {1 - card / host:.1%}); ops by their kernels' "
+        f"card time: " + "; ".join(f"{k} {t:.4f} x{n:g}" for k, t, n in ops))
+
+
+def options_trainer(model, cams, images, init, alive, dev, options=True,
+                    budget=0, writers=None):
+    conf = TrainerConfig(
+        model=model, max_iterations=1000, seed=0,
+        steps_per_eval_image=OPTIONS_EVAL_EVERY,
+        steps_per_eval_all_images=10 ** 6,
+        strategy=strategy.StrategyConfig(warmup_length=4,
+                                         refine_every=REFINE_EVERY),
+        optimize_camera_poses=options, use_bilateral_grid=options,
+        dataset_hbm_budget_bytes=budget)
+    return Trainer(conf, cams, images, init, alive, device=dev,
+                   writers=writers)
+
+
+def step_kernel_inputs(tr):
+    """One step of ``tr`` run with every kernel wrapper's arguments
+    captured (the decode's, the compositing forward's, its backward's with
+    the loss's cotangent, and every segment sum's), then the trainer's
+    state put back."""
+    snap = tr.state()
+    with captured(tiles, "decode_bin_keys", 1) as dec, \
+            captured(batched, "composite_batched_fwd", 1) as fwd, \
+            captured(batched, "composite_batched_bwd", 1) as bwd, \
+            captured(segsum, "segment_sum_sorted") as seg:
+        tr.train_one_step()
+    tr.load_state(snap)
+    tr.history.pop()
+    return {"decode_args": detached(dec[0]), "fwd_args": detached(fwd[0]),
+            "bwd_args": detached(bwd[0]), "step_segsum_args": detached(seg)}
+
+
+def same_trainer_state(a, b):
+    """Names of the entries in which two ``Trainer.state()`` differ."""
+    bad = [f"params {k}" for k in a["params"]
+           if not torch.equal(a["params"][k], b["params"][k])]
+    bad += [f"camera {k}" for k in a["camera_params"]
+            if not torch.equal(a["camera_params"][k], b["camera_params"][k])]
+    bad += [f"statistic {i}" for i, (x, y) in
+            enumerate(zip(a["strat_state"], b["strat_state"]))
+            if not torch.equal(x, y)]
+    for i, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v, b["optimizer"]["state"][i][k]):
+                bad.append(f"Adam {i} {k}")
+    return bad
+
+
+def options_path(dev, weights_dir):
+    """Main path 9: the trainer's options at the bench training scene's
+    width (1M Gaussians at capacity 1,262,144, sh_degree 3, 1280x720, four
+    cameras, ``"xla"``): twelve steps with pose optimisation and bilateral
+    grids on, the depth-normal loss from step 4, an eval image every four
+    steps with LPIPS, JSONL and TensorBoard writers, every frame streamed
+    (budget 0), all with every launch count at 0 just before and read
+    just after.  Then the same twelve steps cached on the card (the same
+    bits), every kernel of a step on its own inputs, a repeated step,
+    ``render_tiled_batch`` against single
+    renders, the writers' files read back, and each layer's time.  Returns
+    the launches and the kernels' errors."""
+    from collab_splats_tpu_torch.core.cameras import stack_cameras
+    from collab_splats_tpu_torch.train import bilateral
+    from collab_splats_tpu_torch.train import camera_opt
+    from collab_splats_tpu_torch.utils import lpips, writers
+
+    n_vgg = write_vgg16_weights(weights_dir, dev)
+    if not lpips.lpips_available():
+        raise AssertionError("path 9: vgg16_lpips.npz not found")
+    params, alive, cams, cfg = make_scene("bench", dev, sh_degree=3)
+    model = rade_gs.RadeGSConfig(
+        sh_degree=3, sh_degree_interval=1, background="random",
+        render=cfg.render, regularization_from_iter=OPTIONS_REG_FROM)
+    with torch.no_grad():
+        images = [rade_gs.get_outputs(params, alive, c, 3, model,
+                                      training=False)[0]["rgb"]
+                  for c in cams]
+    init, ialive = perturbed_init(params, dev)
+    del params, alive
+    logdir = Path(tempfile.mkdtemp(prefix="chip_smoke_writers_"))
+    try:
+        sinks = writers.make_writers("jsonl,tensorboard", logdir)
+        tr = options_trainer(model, cams, images, init, ialive, dev,
+                             writers=sinks)
+        if not (tr.streaming and tr.images[0].is_pinned()):
+            raise AssertionError("path 9: budget 0 did not stream the "
+                                 "frames from pinned host memory")
+        hist, step_ms = [], []
+        reset_counts()
+        for _ in range(OPTIONS_STEPS):
+            _, t = host_ms(lambda: tr.train(
+                1, log_every=10 ** 9, eval_cameras=cams,
+                eval_images=images))
+            hist.append(tr.history[-1])
+            step_ms.append(t)
+        launches = counts()
+        for w in sinks:
+            w.close()
+        evals = OPTIONS_STEPS // OPTIONS_EVAL_EVERY
+        want = {k: 0 for k in launches}
+        want.update(decode=OPTIONS_STEPS + evals,
+                    composite=OPTIONS_STEPS + evals,
+                    composite_bwd=OPTIONS_STEPS,
+                    segment_sum=2 * OPTIONS_STEPS)
+        if launches != want:
+            raise AssertionError(f"path 9: launches {launches}, expected "
+                                 f"{want}")
+        for i, h in enumerate(hist):
+            if not math.isfinite(h["loss"]) or h["nonfinite_grad"] != 0 \
+                    or "tv_loss" not in h:
+                raise AssertionError(f"path 9 step {i}: {h}")
+            if ("depth_normal_loss" in h) != (i >= OPTIONS_REG_FROM):
+                raise AssertionError(f"path 9 step {i}: depth-normal phase")
+            if ("eval_lpips" in h) != ((i + 1) % OPTIONS_EVAL_EVERY == 0):
+                raise AssertionError(f"path 9 step {i}: eval/LPIPS cadence")
+        lp_values = [h["eval_lpips"] for h in hist if "eval_lpips" in h]
+        if not all(math.isfinite(v) and v >= 0 for v in lp_values):
+            raise AssertionError(f"path 9: LPIPS {lp_values}")
+        # The writers' files read back.
+        records = [json.loads(x) for x in
+                   (logdir / "metrics.jsonl").read_text().splitlines()]
+        if [r["step"] for r in records] != list(range(1, OPTIONS_STEPS + 1)) \
+                or any(r["loss"] != h["loss"] for r, h in zip(records, hist)):
+            raise AssertionError("path 9: metrics.jsonl does not hold the "
+                                 "steps' metrics")
+        events = writers.read_tfevents_scalars(sinks[1].path)
+        tags = {(e["step"], e["tag"]) for e in events}
+        if not all((i + 1, "loss") in tags and (i + 1, "tv_loss") in tags
+                   for i in range(OPTIONS_STEPS)) or not all(
+                (i, "eval_lpips") in tags for i in
+                range(OPTIONS_EVAL_EVERY, OPTIONS_STEPS + 1,
+                      OPTIONS_EVAL_EVERY)):
+            raise AssertionError("path 9: the event file lacks steps")
+        streamed = tr.state()
+        copy_ms = median_ms(lambda: tr.images[1].to(dev, non_blocking=True))
+        pose = tr.camera_params["camera_opt"].detach()
+        grid = tr.camera_params["bilateral_grid"].detach()
+        check_determinism(tr)
+        del tr
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # The same steps with the frames cached on the card: the same bits.
+    tr = options_trainer(model, cams, images, init, ialive, dev,
+                         budget=4 << 30)
+    kin = step_kernel_inputs(tr)
+    cached_ms = []
+    for _ in range(OPTIONS_STEPS):
+        _, t = host_ms(lambda: tr.train(1, log_every=10 ** 9))
+        cached_ms.append(t)
+    diff = same_trainer_state(streamed, tr.state())
+    if diff:
+        raise AssertionError(f"path 9: the streamed run and the cached run "
+                             f"differ in {diff[:8]}")
+    step_trace = device_breakdown(lambda: tr.train(1, log_every=10 ** 9),
+                                  reps=2, top=12)
+    say(f"main path 9 (trainer options): {OPTIONS_STEPS} steps of the bench "
+        f"training scene (1M Gaussians at capacity {ialive.shape[0]}, "
+        f"1280x720, sh_degree 3, random background) with camera_opt "
+        f"{tuple(pose.shape)} and bilateral_grid {tuple(grid.shape)}, every "
+        f"frame streamed from pinned host memory, launches {launches}; "
+        f"losses " + ", ".join(f"{h['loss']:.5f}" for h in hist)
+        + "; tv_loss " + ", ".join(f"{h['tv_loss']:.3g}" for h in hist)
+        + f"; eval LPIPS {[round(v, 6) for v in lp_values]} (seeded VGG16, "
+        f"{n_vgg / 1e6:.1f}M parameters); max |pose delta| "
+        f"{float(pose.abs().max()):.3g}; the same steps cached on the card "
+        f"gave the same bits (parameters, per-camera groups, Adam moments, "
+        f"statistics); metrics.jsonl and the event file read back "
+        f"({len(records)} records, {len(events)} scalars)")
+    stop = tr.config.model.render.stop_threshold
+    errs = check_step_kernels(kin, False, "options step", stop)
+
+    # render_tiled_batch over the four cameras against single renders.
+    with torch.no_grad():
+        p, al = tr.params, tr.alive
+        args = (p["means"], p["quats"], gaussians.activated_scales(p),
+                gaussians.activated_opacity(p, al),
+                rade_gs.compute_colors(p, cams[0], tr.step, model))
+        batch = rasterize.render_tiled_batch(*args, stack_cameras(cams),
+                                             model.render)
+        for i, cam in enumerate(cams):
+            single, _ = rasterize.render_tiled(*args, cam, model.render)
+            for name, a, b in zip(single._fields, batch, single):
+                if not torch.equal(a[i], b):
+                    raise AssertionError(f"render_tiled_batch camera {i}: "
+                                         f"{name} differs")
+        batch_ms = median_ms(lambda: rasterize.render_tiled_batch(
+            *args, stack_cameras(cams), model.render), host_clock=True)
+    del batch
+
+    # Each layer of the options, alone on the card.
+    cam, delta = cams[0], pose[0]
+    means = p["means"].detach()
+    cov_w = covariance3d(p["quats"].detach(),
+                         torch.exp(p["scales"].detach()))
+    ct1 = torch.randn(means.shape, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    ct2 = torch.randn(cov_w.shape, generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev)
+
+    def pose_term():
+        d = delta.clone().requires_grad_(True)
+        vm = camera_opt.apply_pose_adjustment(cam, d).viewmat()
+        r, t = vm[:3, :3], vm[:3, 3]
+        out = torch.sum((means @ r.T + t) * ct1) + torch.sum(
+            torch.einsum("ij,njk,lk->nil", r, cov_w, r) * ct2)
+        return torch.autograd.grad(out, [d])
+
+    rgb = images[0]
+    g0 = grid[0].clone().requires_grad_(True)
+    ct3 = torch.randn(rgb.shape, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+
+    def grid_fwd():
+        return (bilateral.apply_bilateral_grid(g0, rgb),
+                bilateral.total_variation_loss(grid))
+
+    def grid_fwd_bwd():
+        out, tv = grid_fwd()
+        return torch.autograd.grad(torch.sum(out * ct3) + tv, [g0])
+
+    grid_trace = device_breakdown(grid_fwd_bwd)
+    layers = {
+        "pose term (exp_so3, c2w, viewmat, and the backward of the "
+        "projection's R_wc, t_wc over the capacity)": median_ms(pose_term),
+        "bilateral slice + apply + TV, forward": median_ms(grid_fwd),
+        "bilateral forward + backward": median_ms(grid_fwd_bwd),
+        "streamed frame copy (pinned host to card, 1280x720x3 float32)":
+            copy_ms,
+        "LPIPS per eval image (host clock)": median_ms(
+            lambda: lpips.lpips(rgb, images[1]), host_clock=True, reps=5),
+        "render_tiled_batch of 4 cameras (host clock)": batch_ms,
+    }
+    del tr
+    torch.cuda.empty_cache()
+
+    # The same trainer without the options, cached, for the step time.
+    tr = options_trainer(model, cams, images, init, ialive, dev,
+                         options=False, budget=4 << 30)
+    plain_ms = []
+    for _ in range(PLAIN_STEPS):
+        _, t = host_ms(lambda: tr.train(1, log_every=10 ** 9))
+        plain_ms.append(t)
+    del tr
+    torch.cuda.empty_cache()
+    lp_flops = vgg16_flops(720, 1280) * 2
+    lp_ms = layers["LPIPS per eval image (host clock)"]
+    nonevals = [t for i, t in enumerate(step_ms)
+                if (i + 1) % OPTIONS_EVAL_EVERY]
+    eval_ms = [round(t, 4) for i, t in enumerate(step_ms)
+               if (i + 1) % OPTIONS_EVAL_EVERY == 0]
+    say("path 9 layers (median of 10 CUDA-event timings unless marked, "
+        "ms): " + "; ".join(f"{k} {v:.4f}" for k, v in layers.items())
+        + f"; LPIPS work {lp_flops / 1e12:.3f} TFLOP a pair (VGG16 at "
+        f"1280x720, float32), {lp_flops / lp_ms / 1e9:.1f} TFLOP/s")
+    say_breakdown("path 9 bilateral slice + apply + TV, forward and backward "
+                  "(1280x720, grid 8x16x16x12)", grid_trace)
+    say_breakdown("path 9 options step, cached", step_trace)
+    say(f"path 9 step (host clock, median (min, max)): options streamed "
+        f"{statistics.median(nonevals):.4f} ({min(nonevals):.4f}, "
+        f"{max(nonevals):.4f}) over the {len(nonevals)} steps without an "
+        f"eval, eval steps {eval_ms}; "
+        f"options cached {statistics.median(cached_ms):.4f} "
+        f"({min(cached_ms):.4f}, {max(cached_ms):.4f}); no options, cached "
+        f"{statistics.median(plain_ms):.4f} ({min(plain_ms):.4f}, "
+        f"{max(plain_ms):.4f}) over {PLAIN_STEPS}")
+    return {"launches": launches, "errs": errs}
+
+
+# ------------------------------------------- main path 10: the pipeline
+# Splatter on a dataset written from the bench scene: ten orbit cameras at
+# 1280x720 (nine train, one eval), 262,144 of its means as the sparse
+# cloud, RaDe-GS at capacity 1,048,576 and sh_degree 3 at full resolution.
+PIPE_CAMS = 10
+PIPE_WIDTH, PIPE_HEIGHT = 1280, 720
+PIPE_POINTS = 262_144
+PIPE_CAPACITY = 1_048_576
+PIPE_FIRST, PIPE_STEPS = 10, 20
+PIPE_FEATURE_STEPS = 12
+VIEWER_REQUESTS = 5
+
+
+@contextlib.contextmanager
+def timed(owner, name, out):
+    """Host ms of every call of ``owner.name`` inside the block, each
+    between two synchronises."""
+    real = getattr(owner, name)
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    setattr(owner, name, call)
+    try:
+        yield out
+    finally:
+        setattr(owner, name, real)
+
+
+def pipeline_path(dev):
+    """Main path 10: the ``Splatter`` pipeline on a bench-scale dataset, in
+    a temporary directory outside the checkout (deleted after); the tower
+    weights are found through ``COLLAB_SPLATS_WEIGHTS``.  Returns the
+    launches and the kernels' errors."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    try:
+        return _pipeline_path(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        extractors._default_extractor.cache_clear()
+        torch.cuda.empty_cache()
+
+
+def _pipeline_path(dev, root):
+    import io
+    import urllib.request
+
+    from collab_splats_tpu_torch.data import png
+    from collab_splats_tpu_torch.data.dataparser import parse_transforms_json
+    from collab_splats_tpu_torch.data.ply import read_ply, write_ply
+    from collab_splats_tpu_torch.pipeline import cli
+    from collab_splats_tpu_torch.pipeline.splatter import Splatter
+
+    stages = {}
+    reset_counts()
+    # 1. The dataset: the bench scene rendered through the PNG codec.
+    params, alive, _, cfg = make_scene("bench", dev)
+    (_, _, cams), t = host_ms(lambda: synthetic.write_synthetic_dataset(
+        root / "input", n_cams=PIPE_CAMS, width=PIPE_WIDTH,
+        height=PIPE_HEIGHT, scene=(params, alive), model_config=cfg,
+        device=dev))
+    stages["dataset write (10 renders, PNG, PLY)"] = t
+    # SfM gives a sparse cloud: keep the first PIPE_POINTS points.
+    ply = read_ply(str(root / "input" / "sparse.ply"))
+    write_ply(str(root / "input" / "sparse.ply"),
+              ply["points"][:PIPE_POINTS], colors=ply["colors"][:PIPE_POINTS])
+    scene = parse_transforms_json(root / "input" / "transforms.json",
+                                  device=dev)
+    if (len(scene.train_cameras), len(scene.eval_cameras)) != (9, 1):
+        raise AssertionError("path 10: the split is not 9 train, 1 eval")
+    ply = read_ply(str(root / "input" / "sparse.ply"))
+    if ply["points"].shape != (PIPE_POINTS, 3):
+        raise AssertionError(f"path 10: sparse.ply {ply['points'].shape}")
+    with torch.no_grad(), uncounted():
+        want = (torch.clamp(render(params, alive, cams[3], cfg)[0]["rgb"],
+                            0, 1) * 255).to(torch.uint8).cpu().numpy()
+    if not np.array_equal(png.read_png(root / "input" / "images"
+                                       / "frame_00003.png"), want):
+        raise AssertionError("path 10: frame 3 does not read back to its "
+                             "render")
+    del params, alive, cams, want
+
+    # 2. RaDe-GS: ten steps, then asked for twenty (a resume), against
+    # twenty at once; the first call's step holds every kernel.
+    train_kw = dict(capacity=PIPE_CAPACITY, sh_degree=3, num_downscales=0)
+
+    def splatter(name, method="rade-gs"):
+        return Splatter({"file_path": str(root / "input"), "method": method,
+                         "output_path": str(root / name)}, device=dev)
+
+    a = splatter("a")
+    a.preprocess()
+    before = counts()
+    step_ms, restore_ms = [], []
+    with timed(Trainer, "train_one_step", step_ms), \
+            timed(Trainer, "restore", restore_ms):
+        with captured(tiles, "decode_bin_keys", 1) as dec, \
+                captured(batched, "composite_batched_fwd", 1) as fwd, \
+                captured(batched, "composite_batched_bwd", 1) as bwd, \
+                captured(segsum, "segment_sum_sorted", 2) as seg:
+            _, t_first = host_ms(lambda: a.train(max_iterations=PIPE_FIRST,
+                                                 **train_kw))
+        a._loaded = None
+        _, t_resume = host_ms(lambda: a.train(max_iterations=PIPE_STEPS,
+                                              **train_kw))
+        b = splatter("b")
+        b.preprocess()
+        b.train(max_iterations=PIPE_STEPS, **train_kw)
+    train_launches = {k: v - before[k] for k, v in counts().items()}
+    kin = {"decode_args": detached(dec[0]), "fwd_args": detached(fwd[0]),
+           "bwd_args": detached(bwd[0]), "step_segsum_args": detached(seg)}
+    del dec, fwd, bwd, seg
+    n_steps = 2 * PIPE_STEPS
+    want = {k: 0 for k in train_launches}
+    want.update(decode=n_steps, composite=n_steps, composite_bwd=n_steps,
+                segment_sum=2 * n_steps)
+    if train_launches != want:
+        raise AssertionError(f"path 10 training: launches {train_launches},"
+                             f" expected {want}")
+    a._loaded = b._loaded = None
+    sa, pa, aa, _, _, _ = a.load_model()
+    sb, pb, ab, _, _, _ = b.load_model()
+    if len(a._runs()) != 1 or (sa, sb) != (PIPE_STEPS, PIPE_STEPS):
+        raise AssertionError("path 10: the interrupted run did not resume")
+    diff = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    if diff or not torch.equal(aa, ab):
+        raise AssertionError(f"path 10: the resumed run differs from the "
+                             f"uninterrupted one in {diff}")
+    stages["first training step"] = step_ms[0]
+    stages["training step, median"] = statistics.median(step_ms[1:])
+    stages["resume (restore)"] = restore_ms[0]
+    stages["resume (train call: restore, 10 steps, save)"] = t_resume
+    stages["first train call (init, 10 steps, save)"] = t_first
+    with uncounted():
+        errs = check_step_kernels(kin, False, "pipeline step",
+                                  RenderOptions().stop_threshold)
+    del kin, pb, ab, b
+    torch.cuda.empty_cache()
+
+    # 3. The mesh, twice: the second call skips.
+    res, t = host_ms(lambda: a.mesh(depth_trunc=MESH_DEPTH_TRUNC,
+                                    align_floor=True))
+    stages["TSDF export (9 cameras)"] = t
+    again, t = host_ms(lambda: a.mesh(depth_trunc=MESH_DEPTH_TRUNC,
+                                      align_floor=True))
+    stages["mesh again (skips)"] = t
+    if not (set(again) <= set(res) and {"vertices", "faces"} <= set(again)
+            and np.array_equal(again["vertices"], res["vertices"])
+            and np.array_equal(again["faces"], res["faces"])):
+        raise AssertionError("path 10: the repeated mesh() returned other "
+                             "keys or arrays")
+    # 4. Loading, aligned cameras, the mesh plot.
+    a._loaded = None
+    _, t = host_ms(a.load_model)
+    stages["load_model"] = t
+    aligned = a.load_aligned_cameras()
+    T = torch.as_tensor(res["floor_transform"], dtype=torch.float32,
+                        device=dev)
+    c0 = scene.train_cameras[0].c2w
+    if len(aligned) != 9 or not torch.allclose(
+            aligned[0].c2w[:3, 3], T[:3, :3] @ c0[:3, 3] + T[:3, 3],
+            atol=1e-5):
+        raise AssertionError("path 10: aligned cameras")
+    img, t = host_ms(lambda: a.plot_mesh(output_fn=root / "mesh.png"))
+    stages["plot_mesh (800x600, host)"] = t
+    if img.shape != (600, 800, 3) or not np.isfinite(img).all() or \
+            png.read_png(root / "mesh.png").shape != (600, 800, 3):
+        raise AssertionError("path 10: plot_mesh")
+    # 5. The viewer: one request answered with the direct render's image.
+    v = a.viewer(port=0, blocking=False)
+    try:
+        url = (f"http://127.0.0.1:{v._server.server_address[1]}/render?"
+               f"theta=0.8&phi=0.5&r=3.0&mode=rgb")
+        body = urllib.request.urlopen(url, timeout=120).read()
+        with uncounted():
+            direct = (np.clip(v.render(0.8, 0.5, 3.0), 0, 1) * 255).astype(
+                np.uint8)
+            if not np.array_equal(png.decode_png(body), direct) or \
+                    direct.shape != (480, 640, 3):
+                raise AssertionError("path 10: the viewer's PNG is not the "
+                                     "direct render")
+            req_ms = []
+            for _ in range(VIEWER_REQUESTS):
+                t0 = time.perf_counter()
+                urllib.request.urlopen(url, timeout=120).read()
+                req_ms.append((time.perf_counter() - t0) * 1e3)
+            render_ms = median_ms(lambda: v.render(0.8, 0.5, 3.0),
+                                  host_clock=True, reps=5)
+    finally:
+        v.shutdown()
+    stages["viewer request 640x480 (render, PNG, HTTP), median"] = \
+        statistics.median(req_ms)
+    stages["  of which SplatViewer.render"] = render_ms
+    n_vertices, n_faces = len(res["vertices"]), len(res["faces"])
+    del res, again, aligned, img, a
+    torch.cuda.empty_cache()
+
+    # 6. rade-features on the towers' seeded weights: extraction, 12 steps,
+    # the mesh and a text query.
+    f = splatter("f", "rade-features")
+    f.preprocess()
+    extract_ms = []
+    with timed(feature_dm.FeatureDatamanager, "_setup_features",
+               extract_ms):
+        _, t = host_ms(lambda: f.train(
+            max_iterations=PIPE_FEATURE_STEPS, capacity=PIPE_CAPACITY,
+            num_downscales=0, extractors=("clip-vit", "dinov2"),
+            feature_type="clip-vit", final_resolution=64))
+    stages["feature extraction (9 images, clip-vit and dinov2)"] = \
+        extract_ms[0]
+    stages["rade-features train call (extraction, 12 steps, save)"] = t
+    _, t = host_ms(lambda: f.mesh(depth_trunc=MESH_DEPTH_TRUNC,
+                                  align_floor=True))
+    stages["rade-features TSDF export with latents"] = t
+    sims, t = host_ms(lambda: f.query_mesh(
+        ["red disk"], ["object"], output_fn=root / "query.ply"))
+    stages["query_mesh"] = t
+    with uncounted():
+        sims2 = f.query_mesh(["red disk"], ["object"])
+    q = read_ply(str(root / "query.ply"))
+    if not (np.isfinite(sims).all() and sims.min() >= 0 and sims.max() <= 1
+            and np.array_equal(sims, sims2) and "colors" in q
+            and len(q["points"]) == len(sims)):
+        raise AssertionError("path 10: query_mesh")
+    # 7. The CLI on the finished output: every stage skips.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--input", str(root / "input"), "--output",
+                       str(root / "a")])
+        rc_list = cli.main(["--list-methods"])
+    text = out.getvalue()
+    skipped = all(m in text for m in ("transforms.json exists",
+                                      "checkpoints exist", "mesh exists"))
+    if rc != 0 or rc_list != 0 or not skipped or "rade-gs" not in text:
+        raise AssertionError(f"path 10: cli returned {rc}/{rc_list}: "
+                             f"{text[-400:]}")
+    launches = counts()
+    for k in ("decode", "composite", "composite_bwd", "segment_sum"):
+        if launches[k] == 0:
+            raise AssertionError(f"path 10: {k} never launched")
+    say(f"main path 10 (Splatter on a bench-scale dataset: 10 cameras at "
+        f"1280x720, 9 train and 1 eval, {PIPE_POINTS} points, capacity "
+        f"{PIPE_CAPACITY}): launches {launches}; the run asked for "
+        f"{PIPE_STEPS} after {PIPE_FIRST} resumed to the bits of "
+        f"{PIPE_STEPS} at once; TSDF mesh {n_vertices} vertices, {n_faces} "
+        f"faces, the second mesh() skipped; viewer PNG equal to the direct "
+        f"render; query similarities in [{sims.min():.4f}, "
+        f"{sims.max():.4f}] over {len(sims)} vertices, repeat bit-identical; "
+        f"the CLI re-run skipped every stage (rc 0)")
+    say("path 10 stages (host clock between synchronises, ms): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()))
+    return {"launches": launches, "errs": errs}
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3091,8 +3757,18 @@ def main() -> int:
     # Main path 8, the feature towers: extraction from path 5's images,
     # training on the maps, the text query over path 7's mesh, segmentation
     # and grouping.
-    tw = tower_path(fdata, dev, vertex_latents, ckpt_decoder)
-    del fdata, vertex_latents, ckpt_decoder
+    # Then main paths 9 (the trainer's options, LPIPS on VGG16 weights
+    # written beside the towers') and 10 (the Splatter pipeline, with the
+    # towers for rade-features), while the weights directory exists.
+    with tower_weights(dev) as (wdir, weights):
+        tw = tower_path(fdata, dev, vertex_latents, ckpt_decoder, wdir,
+                        weights)
+        del fdata, vertex_latents, ckpt_decoder
+        extractors._default_extractor.cache_clear()
+        torch.cuda.empty_cache()
+        opt = options_path(dev, wdir)
+        torch.cuda.empty_cache()
+        pipe = pipeline_path(dev)
     torch.cuda.empty_cache()
     for backend, f in (("xla", fx), ("pallas", fp)):
         say(f"layers of the rade-features {backend} train step, bench scene "
@@ -3292,20 +3968,24 @@ def main() -> int:
         f"{segsum_kernel.LONG_ROWS}")
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
-    # launches summed over the training main paths, mesh extraction and
-    # the feature towers.
+    # launches summed over the training main paths, mesh extraction, the
+    # feature towers, the trainer's options and the pipeline.
     path_launches = {"path 2 (xla)": launches, "path 4 (pallas)": plaunches,
                      "path 5 (rade-features, xla)": fx["launches"],
                      "path 6 (rade-features, pallas)": fp["launches"],
                      "progressive resolution": prog_launches,
                      "path 7 (mesh extraction)": mesh_launches,
-                     "path 8 (feature towers)": tw["launches"]}
-    say("launches per training, meshing and tower main path: " + "; ".join(
+                     "path 8 (feature towers)": tw["launches"],
+                     "path 9 (trainer options)": opt["launches"],
+                     "path 10 (pipeline)": pipe["launches"]}
+    say("launches per training, meshing, tower, options and pipeline main "
+        "path: " + "; ".join(
         f"{k}: { {n: v for n, v in p.items() if v} }"
         for k, p in path_launches.items()))
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in launches}
-    feature_errs = [fx["errs"], fp["errs"], tw["errs"]]
+    feature_errs = [fx["errs"], fp["errs"], tw["errs"], opt["errs"],
+                    pipe["errs"]]
     kernels = []
     for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",

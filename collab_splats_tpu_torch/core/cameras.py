@@ -81,6 +81,18 @@ def make_camera(fx: float, fy: float, cx: float, cy: float, width: int,
     return Camera(K=K, c2w=c2w, width=int(width), height=int(height))
 
 
+def stack_cameras(cameras) -> Camera:
+    """One :class:`Camera` holding a batch of same-sized cameras: K [B, 3,
+    3] and c2w [B, 4, 4] (``ops/rasterize.py::render_tiled_batch``)."""
+    cameras = list(cameras)
+    sizes = {(c.width, c.height) for c in cameras}
+    if len(sizes) != 1:
+        raise ValueError(f"cameras of different sizes {sorted(sizes)}")
+    return Camera(K=torch.stack([c.K for c in cameras]),
+                  c2w=torch.stack([c.c2w for c in cameras]),
+                  width=cameras[0].width, height=cameras[0].height)
+
+
 def camera_from_numpy(K: np.ndarray, c2w: np.ndarray, width: int,
                       height: int, device=None) -> Camera:
     """Camera from the JAX package's arrays (K [3, 3], c2w [4, 4])."""

@@ -20,6 +20,7 @@ import numpy as np
 
 from ..core.cameras import Camera, make_camera
 from .ply import read_ply
+from .png import read_png
 
 
 @dataclasses.dataclass
@@ -149,7 +150,16 @@ def load_image(path: str | Path, downscale_factor: int = 1) -> np.ndarray:
 def load_image_uint8(path: str | Path,
                      downscale_factor: int = 1) -> np.ndarray:
     """An image as uint8 [H, W, 3], bilinearly resized to floor-divided
-    sizes when ``downscale_factor`` > 1."""
+    sizes when ``downscale_factor`` > 1.
+
+    A PNG at full size is read by the port's own codec (``data/png.py``),
+    so a run needs no image library; PIL reads other formats and
+    downscaled loads (its BILINEAR resize), imported here."""
+    if downscale_factor <= 1 and Path(path).suffix.lower() == ".png":
+        img = read_png(path)
+        if img.shape[2] == 1:               # greyscale, as convert("RGB")
+            return np.repeat(img, 3, axis=2)
+        return np.ascontiguousarray(img[..., :3])
     from PIL import Image
 
     img = Image.open(path).convert("RGB")

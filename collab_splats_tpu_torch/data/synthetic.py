@@ -4,11 +4,13 @@ Counterpart of the JAX package's ``data/synthetic.py``.  Draws come from an
 explicit ``torch.Generator``; they differ from ``jax.random``'s, so tests
 that compare the two packages build one scene with numpy and hand it to
 both (``models/gaussians.py::params_from_numpy``).
+:func:`write_synthetic_dataset` renders a scene to a dataset directory
+that the pipeline takes in place of an SfM run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +106,90 @@ def orbit_cameras(
                                 width, height, look_at_c2w(eye, target),
                                 device=device))
     return cams
+
+
+def write_synthetic_dataset(
+    out_dir,
+    n_cams: int = 8,
+    n_gaussians: int = 300,
+    width: int = 64,
+    height: int = 64,
+    seed: int = 0,
+    scene: Optional[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = None,
+    model_config=None,
+    device=None,
+):
+    """Render a Gaussian scene to a nerfstudio-format dataset.
+
+    Writes ``transforms.json``, ``images/frame_XXXXX.png`` (the port's PNG
+    codec) and ``sparse.ply`` (the scene's means with their SH0 colours):
+    the contract the preprocessing stage (ns-process-data / COLMAP) would
+    produce, so the pipeline runs with no SfM.  By default the scene is
+    ``random_gaussian_params`` drawn from ``torch.Generator`` seeded with
+    ``seed`` (not the JAX package's draws), rendered black-background at
+    sh_degree 0 from ``n_cams`` orbit cameras at radius 2.5.
+
+    ``scene`` gives (raw params, alive) to render instead, with
+    ``model_config`` (a ``RadeGSConfig``) for its render.  Renders run on
+    ``device`` (the card by default).
+
+    Returns (out_dir, params, cameras).
+    """
+    import json
+    from pathlib import Path
+
+    from ..core.options import RenderOptions
+    from ..core.sh import sh0_to_rgb
+    from ..models import rade_gs
+    from .ply import write_ply
+    from .png import write_png
+
+    dev = resolve_device(device)
+    out_dir = Path(out_dir)
+    (out_dir / "images").mkdir(parents=True, exist_ok=True)
+    if scene is None:
+        gt = random_gaussian_params(torch.Generator().manual_seed(seed),
+                                    n_gaussians, extent=0.6,
+                                    scale_range=(0.02, 0.08), device=dev)
+        alive = torch.ones(n_gaussians, dtype=torch.bool, device=dev)
+    else:
+        gt, alive = scene
+    if model_config is None:
+        model_config = rade_gs.RadeGSConfig(
+            sh_degree=0, background="black",
+            render=RenderOptions(tile_capacity=256,
+                                 max_intersections=1 << 16))
+    focal = 1.1 * max(width, height)
+    cams = orbit_cameras(n_cams, radius=2.5, width=width, height=height,
+                         focal=focal, device=dev)
+    frames = []
+    with torch.no_grad():
+        for i, cam in enumerate(cams):
+            out, _ = rade_gs.get_outputs(gt, alive, cam, 0, model_config,
+                                         training=False)
+            img = (torch.clamp(out["rgb"], 0, 1) * 255).to(torch.uint8)
+            name = f"images/frame_{i:05d}.png"
+            write_png(out_dir / name, img.cpu().numpy())
+            frames.append({
+                "file_path": name,
+                "transform_matrix": cam.c2w.cpu().numpy().astype(
+                    np.float64).tolist(),
+            })
+        means = gt["means"][alive]
+        colors = torch.clamp(sh0_to_rgb(gt["features_dc"][alive]), 0, 1)
+        means, colors = means.cpu().numpy(), colors.cpu().numpy()
+    meta = {
+        "fl_x": float(focal), "fl_y": float(focal),
+        "cx": width / 2.0, "cy": height / 2.0,
+        "w": width, "h": height,
+        "camera_model": "OPENCV",
+        "ply_file_path": "sparse.ply",
+        "frames": frames,
+    }
+    with open(out_dir / "transforms.json", "w") as f:
+        json.dump(meta, f)
+    write_ply(str(out_dir / "sparse.ply"), means, colors=colors)
+    return out_dir, gt, cams
 
 
 def flat_disk_gaussian(center=(0.0, 0.0, 0.0), normal=(0.0, 0.0, 1.0),

@@ -71,6 +71,22 @@ def params_from_numpy(params: Dict[str, np.ndarray],
     return out
 
 
+# Entries of the distance table made at once: rows of it are taken in
+# blocks, so a cloud of 262,144 points needs 1 GiB, not its whole table.
+_KNN_BLOCK = 1 << 28
+
+
+def _knn3_d2(points: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Squared distances [hi - lo, 3] from points[lo:hi] to their 3 nearest
+    other points: rows of the full distance table, each entry computed as
+    the whole table would be, the diagonal pushed out by 1e10."""
+    d2 = torch.sum((points[lo:hi, None, :] - points[None, :, :]) ** 2,
+                   dim=-1)
+    rows = torch.arange(hi - lo, device=points.device)
+    d2[rows, rows + lo] += 1e10
+    return torch.topk(d2, 3, dim=-1, largest=False).values
+
+
 def init_from_points(
     points,
     colors,
@@ -85,9 +101,10 @@ def init_from_points(
     colours [N, 3] in [0, 1].
 
     Scales are the log of the mean distance to the 3 nearest neighbours
-    (an O(N^2) distance table, at init time only); quaternions are normal
-    draws from ``generator`` (on its device), normalized; opacities start
-    at logit(``init_opacity``); SH rest coefficients at zero.
+    (an O(N^2) distance table, in blocks of rows, at init time only);
+    quaternions are normal draws from ``generator`` (on its device),
+    normalized; opacities start at logit(``init_opacity``); SH rest
+    coefficients at zero.
 
     Returns:
         (params, alive) at ``capacity`` rows (default: the point count), on
@@ -101,9 +118,9 @@ def init_from_points(
     if capacity < n:
         raise ValueError(f"init_from_points: capacity {capacity} < {n} "
                          "points")
-    d2 = torch.sum((points[:, None, :] - points[None, :, :]) ** 2, dim=-1)
-    d2 = d2 + torch.eye(n, device=dev) * 1e10
-    knn = torch.topk(d2, 3, dim=-1, largest=False).values
+    rows = max(_KNN_BLOCK // max(n, 1), 1)
+    knn = torch.cat([_knn3_d2(points, lo, min(lo + rows, n))
+                     for lo in range(0, n, rows)])
     avg_dist = torch.mean(torch.sqrt(torch.clamp(knn, min=1e-12)), dim=-1)
     log_scales = torch.log(avg_dist)[:, None].repeat(1, 3)
 

@@ -245,6 +245,33 @@ def render_tiled_pallas(
     return out, meta
 
 
+def render_tiled_batch(
+    means: torch.Tensor,
+    quats: torch.Tensor,
+    scales: torch.Tensor,
+    opacities: torch.Tensor,
+    colors: torch.Tensor,
+    cameras: Camera,
+    opts: RenderOptions = RenderOptions(),
+) -> RenderOutput:
+    """Render a batch of cameras in one call.
+
+    ``cameras`` is a stacked :class:`Camera` (K [B, 3, 3], c2w [B, 4, 4],
+    one width and height; ``core/cameras.py::stack_cameras``).  The
+    cameras render one after another with :func:`render_tiled`, as the JAX
+    package's ``lax.map`` runs them: one 720p camera already fills the
+    card, and the window rows of B cameras at once would scale memory with
+    B.  Returns the RenderOutput fields stacked along a leading [B] axis.
+    """
+    outs = []
+    for K, c2w in zip(cameras.K, cameras.c2w):
+        cam = Camera(K=K, c2w=c2w, width=cameras.width,
+                     height=cameras.height)
+        outs.append(render_tiled(means, quats, scales, opacities, colors,
+                                 cam, opts)[0])
+    return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
+
+
 def render_from_projections(
     proj: Projection,
     opac: torch.Tensor,

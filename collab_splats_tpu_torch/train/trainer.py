@@ -15,9 +15,14 @@ opacities periodically, depth-normal loss from
 progressive resolution (``num_downscales``), and a checkpoint every
 ``steps_per_save`` steps through ``checkpoint_fn``.
 
-Left for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): camera pose optimization and bilateral grids.  Evaluation
-reports PSNR and SSIM (no LPIPS).
+The reference's remaining options: camera pose optimization (a 6-DoF
+delta per training camera on the rendered camera, ``train/camera_opt.py``)
+and per-image bilateral grids (on the rendered RGB, with a total-variation
+term, ``train/bilateral.py``), each one more Adam group.  Datasets over
+``dataset_hbm_budget_bytes`` stay in pinned host memory and stream the
+selected frame (and its feature maps) to the card each step.  ``writers``
+receive each step's metrics.  Evaluation reports PSNR and SSIM, and LPIPS
+wherever its VGG16 weights are found (``utils/lpips.py``).
 """
 
 from __future__ import annotations
@@ -35,15 +40,32 @@ from ..features import decoder as decoder_lib
 from ..models import rade_features, rade_gs
 from ..models.gaussians import GaussianParams, grow_capacity, num_alive
 from ..ops.rasterize import absgrad_sink_shape, pallas_sink_shape
+from ..utils import lpips as lp
 from ..utils.device import resolve_device
+from . import bilateral
+from . import camera_opt as co
 from . import checkpoint as ckpt
 from . import losses, optim, strategy
+
+# The per-camera (not per-Gaussian) parameters of the two options, under
+# the JAX package's parameter keys.
+CAMERA_PARAM_GROUPS = {"camera_opt": co.CAMERA_OPT_GROUP,
+                       "bilateral_grid": bilateral.BILATERAL_GROUP}
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The reference's training cadence; field names and defaults are the
-    JAX package's."""
+    """The reference's training cadence and options; field names and
+    defaults are the JAX package's.
+
+    ``optimize_camera_poses`` adds the ``camera_opt`` group (a 6-DoF pose
+    delta per training camera), ``use_bilateral_grid`` the
+    ``bilateral_grid`` group (a [8, 16, 16, 12] affine colour grid per
+    training image, with ``10 *`` its total variation in the loss).
+    Datasets whose images and feature maps (4 bytes a value) exceed
+    ``dataset_hbm_budget_bytes`` stay in pinned host memory and stream one
+    frame per step.
+    """
 
     max_iterations: int = 30000
     steps_per_eval_image: int = 100
@@ -60,12 +82,7 @@ class TrainerConfig:
     # early, halving the factor every ``resolution_schedule`` steps.
     num_downscales: int = 0
     resolution_schedule: int = 3000
-
-    def __post_init__(self):
-        if self.optimize_camera_poses or self.use_bilateral_grid:
-            raise NotImplementedError(
-                "camera_opt and bilateral grids are not ported yet "
-                "(ROADMAP Queue 1 item 2)")
+    dataset_hbm_budget_bytes: int = 4 << 30
 
 
 def _move_camera(cam: Camera, device) -> Camera:
@@ -79,6 +96,19 @@ def _image(im, device) -> torch.Tensor:
     if isinstance(im, torch.Tensor):
         return im.detach().to(device, torch.float32)
     return torch.tensor(np.asarray(im, np.float32), device=device)
+
+
+def _host_image(im, device) -> torch.Tensor:
+    """A float32 image or feature map kept on the host for streaming to
+    ``device``: pinned when that is a card, so each step's copy can be
+    asynchronous."""
+    t = _image(im, "cpu")
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _nbytes(x) -> int:
+    """Bytes of ``x`` at 4 bytes a value, as the JAX trainer counts."""
+    return int(np.prod(x.shape)) * 4
 
 
 class Trainer:
@@ -95,6 +125,13 @@ class Trainer:
     trainer moves to ``device`` and updates in place.  ``checkpoint_fn``
     is called with the trainer every ``steps_per_save`` steps of
     :meth:`train` (for example ``lambda t: t.save(directory)``).
+
+    The options' per-camera parameters live in ``camera_params``
+    (``"camera_opt"`` [num_cameras, 6], ``"bilateral_grid"``
+    [num_cameras, 8, 16, 16, 12]); ``params`` may carry them in, as the
+    JAX trainer's parameter dict does, and they start at the identity
+    otherwise.  ``writers`` (``utils/writers.py``) get each step's
+    metrics.
     """
 
     def __init__(
@@ -109,6 +146,7 @@ class Trainer:
         features: Optional[Sequence[Dict]] = None,
         decoder: Optional[decoder_lib.TwoLayerDecoder] = None,
         device=None,
+        writers: Optional[Sequence] = None,
     ):
         if len(cameras) != len(images):
             raise ValueError(f"{len(cameras)} cameras but {len(images)} "
@@ -119,30 +157,56 @@ class Trainer:
         self.device = dev
         self.config = config
         self.cameras = [_move_camera(c, dev) for c in cameras]
-        self.images = [_image(im, dev) for im in images]
+        # The dataset stays on the card while it fits the budget; past it,
+        # frames and feature maps stay in pinned host memory and each step
+        # copies the selected one over (train_one_step).
+        total = sum(_nbytes(im) for im in images)
+        if features is not None:
+            total += sum(_nbytes(v) for f in features for v in f.values())
+        self.streaming = total > config.dataset_hbm_budget_bytes
+        keep = _host_image if self.streaming else _image
+        self.images = [keep(im, dev) for im in images]
         self.features = None
         if features is not None:
-            self.features = [{k: _image(v, dev) for k, v in f.items()}
+            self.features = [{k: keep(v, dev) for k, v in f.items()}
                              for f in features]
             _check_features(config.model, self.features, len(cameras))
         self.decoder = decoder.to(dev) if decoder is not None else None
-        self.params = {k: v.detach().to(dev, torch.float32).clone()
-                       .requires_grad_(True) for k, v in params.items()}
+
+        def leaf(v):
+            return v.detach().to(dev, torch.float32).clone().requires_grad_(
+                True)
+
+        self.params = {k: leaf(v) for k, v in params.items()
+                       if k not in CAMERA_PARAM_GROUPS}
+        self.camera_params = {k: leaf(v) for k, v in params.items()
+                              if k in CAMERA_PARAM_GROUPS}
+        if config.optimize_camera_poses and \
+                "camera_opt" not in self.camera_params:
+            self.camera_params["camera_opt"] = leaf(
+                co.init_camera_opt(len(cameras), dev))
+        if config.use_bilateral_grid and \
+                "bilateral_grid" not in self.camera_params:
+            self.camera_params["bilateral_grid"] = leaf(
+                bilateral.init_bilateral_grids(len(cameras), device=dev))
         self.alive = alive.to(dev, torch.bool)
         self.groups = dict(groups or (
             optim.RADE_FEATURES_GROUPS if "distill_features" in params
             else optim.RADE_GS_GROUPS))
+        for k in self.camera_params:
+            self.groups.setdefault(k, CAMERA_PARAM_GROUPS[k])
         self.optimizer, self.scheduler = optim.make_optimizer(
             self._opt_params(), self.groups)
         self.strat_state = strategy.init_state(self.alive.shape[0], dev)
         self.step = 0
         self.checkpoint_fn = checkpoint_fn
+        self.writers = list(writers or [])
         self.history: List[Dict[str, float]] = []
 
     def _opt_params(self) -> Dict:
-        """The optimizer's groups: one per parameter, and the decoder's
-        tensors as one group."""
-        out = dict(self.params)
+        """The optimizer's groups: one per parameter (per-camera ones
+        included), and the decoder's tensors as one group."""
+        out = {**self.params, **self.camera_params}
         if self.decoder is not None:
             out["decoder"] = list(self.decoder.parameters())
         return out
@@ -158,10 +222,10 @@ class Trainer:
     # ----------------------------------------------------------- the step
     def _train_step(self, camera: Camera, image: torch.Tensor,
                     features_gt: Optional[Dict[str, torch.Tensor]],
-                    reg_active: bool,
-                    downscale: int = 1) -> Dict[str, torch.Tensor]:
+                    reg_active: bool, downscale: int = 1,
+                    cam_idx: int = 0) -> Dict[str, torch.Tensor]:
         cfg = self.config.model
-        params, alive = self.params, self.alive
+        params, alive, cparams = self.params, self.alive, self.camera_params
         if downscale > 1:
             # ``camera`` comes downscaled (floor-division sizes); the
             # ground truth is box-filtered to match, as Splatfacto does.
@@ -174,10 +238,17 @@ class Trainer:
         sink = torch.zeros(sink_shape(camera.width, camera.height, cap,
                                       cfg.render),
                            device=self.device, requires_grad=True)
+        if "camera_opt" in cparams:
+            camera = co.apply_pose_adjustment(
+                camera, cparams["camera_opt"][cam_idx])
         outputs, meta = rade_gs.get_outputs(
             params, alive, camera, self.step, cfg,
             generator=self._generator(1), training=True,
             compute_error_maps=reg_active, absgrad_sink=sink)
+        if "bilateral_grid" in cparams:
+            outputs = dict(outputs)
+            outputs["rgb"] = bilateral.apply_bilateral_grid(
+                cparams["bilateral_grid"][cam_idx], outputs["rgb"])
         if features_gt is not None:
             loss, ldict = rade_features.get_loss(
                 outputs, image, features_gt, params, self.decoder, alive,
@@ -188,11 +259,18 @@ class Trainer:
                                            self.step, cfg,
                                            reg_active=reg_active)
             dparams = []
+        if "bilateral_grid" in cparams:
+            ldict["tv_loss"] = 10.0 * bilateral.total_variation_loss(
+                cparams["bilateral_grid"])
+            loss = loss + ldict["tv_loss"]
         names = list(params)
+        cnames = list(cparams)
         grads = torch.autograd.grad(
-            loss, [params[k] for k in names] + dparams + [sink],
+            loss, [params[k] for k in names]
+            + [cparams[k] for k in cnames] + dparams + [sink],
             allow_unused=True)
         sink_grad = grads[-1]
+        nparams = len(names) + len(cnames)
 
         # Dead rows must not move: zero their gradients exactly.
         amask = alive.to(torch.float32)
@@ -200,8 +278,10 @@ class Trainer:
         for k, g in zip(names, grads[:len(names)]):
             g = torch.zeros_like(params[k]) if g is None else g
             pgrads[k] = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
+        for k, g in zip(cnames, grads[len(names):nparams]):
+            pgrads[k] = torch.zeros_like(cparams[k]) if g is None else g
         dgrads = [torch.zeros_like(p) if g is None else g
-                  for p, g in zip(dparams, grads[len(names):-1])]
+                  for p, g in zip(dparams, grads[nparams:-1])]
 
         # Non-finite guard: one degenerate splat's inf/NaN gradient would
         # poison every Adam moment, so such a step is skipped (parameters,
@@ -212,7 +292,7 @@ class Trainer:
             for g in [*pgrads.values(), *dgrads, sink_grad]]).all()
         if bool(finite):
             for k, g in pgrads.items():
-                params[k].grad = g
+                (params[k] if k in params else cparams[k]).grad = g
             for p, g in zip(dparams, dgrads):
                 p.grad = g
             self.optimizer.step()
@@ -252,10 +332,17 @@ class Trainer:
         reg_active = (cfg.model.use_depth_normal_loss
                       and self.step >= cfg.model.regularization_from_iter)
         d = self.downscale_factor()
-        metrics = self._train_step(
-            self.cameras[idx].downscaled(d), self.images[idx],
-            self.features[idx] if self.features is not None else None,
-            reg_active, d)
+        image = self.images[idx]
+        features_gt = self.features[idx] if self.features is not None \
+            else None
+        if self.streaming:
+            # The selected frame's copy, queued on the step's stream.
+            image = image.to(self.device, non_blocking=True)
+            if features_gt is not None:
+                features_gt = {k: v.to(self.device, non_blocking=True)
+                               for k, v in features_gt.items()}
+        metrics = self._train_step(self.cameras[idx].downscaled(d), image,
+                                   features_gt, reg_active, d, idx)
         self.step += 1
 
         refined = {}
@@ -346,6 +433,8 @@ class Trainer:
                 ev = self.eval_image(eval_cameras[i], eval_images[i])
                 self.history[-1]["eval_psnr"] = ev["psnr"]
                 self.history[-1]["eval_ssim"] = ev["ssim"]
+                if "lpips" in ev:
+                    self.history[-1]["eval_lpips"] = ev["lpips"]
             if do_eval and \
                     self.step % self.config.steps_per_eval_all_images == 0:
                 evs = [self.eval_image(c, im)
@@ -354,6 +443,8 @@ class Trainer:
                     np.mean([e["psnr"] for e in evs]))
                 log_fn(f"step {self.step:6d}  eval-all psnr "
                        f"{self.history[-1]['eval_all_psnr']:.2f}")
+            for w in self.writers:
+                w.write(self.step, self.history[-1])
             if self.step % log_every == 0:
                 rate = self.step / max(time.time() - t0, 1e-9)
                 log_fn(f"step {self.step:6d}  loss {m['loss']:.4f}  "
@@ -370,8 +461,11 @@ class Trainer:
             self.params, self.alive, _move_camera(camera, self.device),
             self.step, self.config.model, training=False)
         image = _image(image, self.device)
-        return {"psnr": float(losses.psnr(outputs["rgb"], image)),
-                "ssim": float(losses.ssim(outputs["rgb"], image))}
+        metrics = {"psnr": float(losses.psnr(outputs["rgb"], image)),
+                   "ssim": float(losses.ssim(outputs["rgb"], image))}
+        if lp.lpips_available():
+            metrics["lpips"] = lp.lpips(outputs["rgb"], image)
+        return metrics
 
     # ------------------------------------------------------------- state
     def state(self) -> Dict:
@@ -381,6 +475,8 @@ class Trainer:
         repeated."""
         return {
             "params": {k: v.detach().clone() for k, v in self.params.items()},
+            "camera_params": {k: v.detach().clone()
+                              for k, v in self.camera_params.items()},
             "decoder": None if self.decoder is None else {
                 k: v.detach().clone() for k, v in
                 decoder_lib.decoder_tensors(self.decoder).items()},
@@ -398,14 +494,17 @@ class Trainer:
         optimizer's groups are pointed at them."""
         self.params = {k: v.clone().requires_grad_(True)
                        for k, v in state["params"].items()}
+        self.camera_params = {k: v.clone().requires_grad_(True)
+                              for k, v in state["camera_params"].items()}
+        leaves = {**self.params, **self.camera_params}
         if self.decoder is not None:
             with torch.no_grad():
                 for k, v in decoder_lib.decoder_tensors(
                         self.decoder).items():
                     v.copy_(state["decoder"][k])
         for group in self.optimizer.param_groups:
-            if group["name"] in self.params:
-                group["params"][0] = self.params[group["name"]]
+            if group["name"] in leaves:
+                group["params"][0] = leaves[group["name"]]
         # load_state_dict keeps the tensors it is given: hand it copies.
         self.optimizer.load_state_dict(copy.deepcopy(state["optimizer"]))
         self.scheduler.load_state_dict(copy.deepcopy(state["scheduler"]))
@@ -429,15 +528,17 @@ class Trainer:
         self.strat_state = ckpt.strategy_from_flat(
             flat, self.alive.shape[0], self.device)
 
-    def save(self, directory):
-        """Write a resumable checkpoint (parameters, decoder, alive mask,
-        Adam state, statistics) to ``directory`` in the JAX package's
-        format; returns its path."""
+    def save(self, directory, metadata: Optional[Dict] = None):
+        """Write a resumable checkpoint (parameters, the options' per-camera
+        parameters, decoder, alive mask, Adam state, statistics) to
+        ``directory`` in the JAX package's format, with ``metadata`` in its
+        sidecar beside the capacity; returns its path."""
         return ckpt.save_checkpoint(
-            directory, self.step, self.params, self.alive,
-            decoder=self.decoder, optimizer=self.optimizer,
+            directory, self.step, {**self.params, **self.camera_params},
+            self.alive, decoder=self.decoder, optimizer=self.optimizer,
             strat_state=self.strat_state,
-            metadata={"capacity": int(self.alive.shape[0])})
+            metadata={"capacity": int(self.alive.shape[0]),
+                      **(metadata or {})})
 
     def restore(self, path) -> None:
         """Resume from a checkpoint of :meth:`save` or of the JAX
@@ -449,7 +550,13 @@ class Trainer:
         step, params, alive, extras = ckpt.load_checkpoint(path, self.device)
         self.step = step
         self.params = {k: v.to(torch.float32).requires_grad_(True)
-                       for k, v in params.items()}
+                       for k, v in params.items()
+                       if k not in CAMERA_PARAM_GROUPS}
+        self.camera_params = {k: v.to(torch.float32).requires_grad_(True)
+                              for k, v in params.items()
+                              if k in CAMERA_PARAM_GROUPS}
+        for k in self.camera_params:
+            self.groups.setdefault(k, CAMERA_PARAM_GROUPS[k])
         self.alive = alive.to(torch.bool)
         if self.decoder is not None:
             decoder_lib.load_numpy(self.decoder, ckpt.decoder_arrays(extras))

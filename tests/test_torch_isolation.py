@@ -51,7 +51,12 @@ def test_every_module_imports_without_jax():
               "features.clip_tokenizer", "features.vit",
               "features.extractors", "features.datamanager", "features.sam",
               "features.sam_predictor", "features.yolo",
-              "features.segmentation", "features.grouping"):
+              "features.segmentation", "features.grouping",
+              "train.camera_opt", "train.bilateral", "utils.writers",
+              "utils.lpips", "utils.pointcloud", "utils.visualization",
+              "utils.colormaps", "data.png", "pipeline.config",
+              "pipeline.colmap", "pipeline.hloc", "pipeline.equirect",
+              "pipeline.viewer", "pipeline.splatter", "pipeline.cli"):
         assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]
@@ -110,6 +115,47 @@ def test_card_default_raises_without_a_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+@pytest.mark.parametrize("entry", [
+    "init_camera_opt", "init_bilateral_grids", "lpips", "SplatViewer",
+    "Splatter", "write_synthetic_dataset"])
+def test_pipeline_entries_need_a_card_or_the_cpu(monkeypatch, tmp_path,
+                                                 entry):
+    """This slice's entry points run on the card unless asked for the CPU
+    (LPIPS is given a weights file, so it reaches the device choice)."""
+    from collab_splats_tpu_torch.data.synthetic import \
+        write_synthetic_dataset
+    from collab_splats_tpu_torch.pipeline.splatter import Splatter
+    from collab_splats_tpu_torch.pipeline.viewer import SplatViewer
+    from collab_splats_tpu_torch.train.bilateral import init_bilateral_grids
+    from collab_splats_tpu_torch.train.camera_opt import init_camera_opt
+    from collab_splats_tpu_torch.utils import lpips
+
+    np.savez(tmp_path / "vgg16_lpips.npz", x=np.zeros(1, np.float32))
+    monkeypatch.setenv("COLLAB_SPLATS_WEIGHTS", str(tmp_path))
+    params = random_gaussian_params(torch.Generator(), 4, device="cpu")
+    make = {
+        "init_camera_opt": lambda **kw: init_camera_opt(2, **kw),
+        "init_bilateral_grids": lambda **kw: init_bilateral_grids(1, **kw),
+        "SplatViewer": lambda **kw: SplatViewer(
+            params, torch.ones(4, dtype=torch.bool), **kw),
+        "Splatter": lambda **kw: Splatter(
+            {"file_path": str(tmp_path), "method": "rade-gs"}, **kw),
+        "write_synthetic_dataset": lambda **kw: write_synthetic_dataset(
+            tmp_path / "d", n_cams=1, n_gaussians=4, width=16, height=16,
+            **kw),
+    }.get(entry)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "lpips":
+        # Numpy images: the device is the caller's choice, the card by
+        # default.
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lpips.lpips(np.zeros((8, 8, 3)), np.zeros((8, 8, 3)))
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    make(device="cpu")
 
 
 @pytest.mark.parametrize("entry", [

@@ -12,6 +12,8 @@ and on its own raises PSNR by at least 3 dB in 200 steps, as
 test_training.py asks of JAX.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,8 +144,31 @@ def test_psnr_improves_in_200_steps(scene):
         assert torch.equal(v.detach()[dead], init[k][dead]), k
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainerConfig(optimize_camera_poses=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainerConfig(use_bilateral_grid=True)
+def test_unported_options_raise(scene):
+    """Both options that raised here before they were ported now build a
+    trainer: its ``camera_opt`` and ``bilateral_grid`` groups exist, start
+    at the identity and carry the JAX package's learning-rate tables."""
+    from collab_splats_tpu.train.bilateral import BILATERAL_GROUP
+    from collab_splats_tpu.train.camera_opt import CAMERA_OPT_GROUP
+
+    init, alive, _, tcams, images, _, tcfg = scene
+    conf = TrainerConfig(model=tcfg, optimize_camera_poses=True,
+                         use_bilateral_grid=True)
+    tr = Trainer(conf, tcams, images, params_from_numpy(init, device="cpu"),
+                 torch.from_numpy(alive), device="cpu")
+    n = len(tcams)
+    assert tuple(tr.camera_params["camera_opt"].shape) == (n, 6)
+    assert not tr.camera_params["camera_opt"].any()
+    assert tuple(tr.camera_params["bilateral_grid"].shape) == (
+        n, 8, 16, 16, 12)
+    ident = torch.cat([torch.eye(3).reshape(-1), torch.zeros(3)])
+    assert torch.equal(tr.camera_params["bilateral_grid"][2, 3, 4, 5],
+                       ident)
+    groups = {g["name"]: g for g in tr.optimizer.param_groups}
+    for name, jspec in (("camera_opt", CAMERA_OPT_GROUP),
+                        ("bilateral_grid", BILATERAL_GROUP)):
+        spec = tr.groups[name]
+        assert dataclasses.asdict(spec) == dataclasses.asdict(jspec), name
+        assert groups[name]["params"][0] is tr.camera_params[name]
+        # The schedule starts at lr_pre_warmup = 0 (sine warmup).
+        assert groups[name]["lr"] == 0.0, name
