@@ -9,7 +9,7 @@ the four compositing kernels also on the seeded edge cases of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 ``backend="pallas"`` render against the ``"xla"`` render.  Then it drives
-the port's ten main paths:
+the port's twelve main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -78,7 +78,20 @@ the port's ten main paths:
    ``load_aligned_cameras``, ``plot_mesh``, one HTTP request to the viewer
    (its PNG equal to the direct render), rade-features with the towers'
    seeded weights (12 steps, a mesh, ``query_mesh`` in [0, 1] and
-   repeatable), and the CLI re-run skipping every stage.
+   repeatable), and the CLI re-run skipping every stage;
+11. multi-device training (``parallel/``) on a 1x1 mesh under NCCL in
+   this process (world size 1: every collective is a copy): the bench
+   training scene at capacity 1,262,144, ten all-gather sharded steps with
+   one sharded refine, ten tile-sharded steps at send_cap = shard and two
+   at shard / 8; the first step's loss and pre-Adam gradients against the
+   single-device step, the routed step against the all-gather one, a
+   repeated step's bits, kernels 1-4 on both steps' own inputs, and the
+   step times (``utils/profiling.py``) beside the single-device step's;
+12. ``render_golden`` on the card at 4,096 Gaussians and 512x512, both
+   tiled renderers held against it, then the analytic scene
+   (``data/analytic.py``: eight 640x480 views ray-traced on the host,
+   100,000 seed points) fitted for 300 steps (mean training-view PSNR up
+   by 3 dB) and meshed, the mesh's accuracy and completeness printed.
 
 It checks what comes out, the kernels each path launches (path 7 needs
 ``cpp/libmesh_repair.so``, built at first use), and prints
@@ -139,6 +152,9 @@ from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
 from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
+from collab_splats_tpu_torch.utils import profiling
+from collab_splats_tpu_torch.utils.profiling import (device_breakdown,
+                                                     say_breakdown)
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
 # the bounds below are computed from.
@@ -2990,48 +3006,6 @@ def vgg16_flops(height, width):
     return flops
 
 
-def device_breakdown(fn, reps=3, top=8):
-    """A ``torch.profiler`` trace of ``reps`` calls of ``fn`` after one
-    untraced call.  Returns (host ms per call, card ms per call: the sum of
-    the kernels' durations, [(op and input shapes, self card ms per call,
-    calls per call)] of the ``top`` aten ops by the card time of the kernels
-    they launch themselves)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def card_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if t is None else t
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3 / reps
-    events = prof.key_averages(group_by_input_shape=True)
-    card = sum(card_us(e) for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
-    ops = sorted(((f"{e.key}{list(e.input_shapes) if e.input_shapes else ''}",
-                   card_us(e) / 1e3 / reps, e.count / reps)
-                  for e in events if e.key.startswith("aten::")
-                  and card_us(e) > 0), key=lambda r: -r[1])
-    return host, card, ops[:top]
-
-
-def say_breakdown(what, breakdown):
-    host, card, ops = breakdown
-    if card == 0:
-        say(f"{what}: torch.profiler saw no card time (host {host:.4f} ms)")
-        return
-    say(f"{what} (torch.profiler, ms per call): host {host:.4f}, card "
-        f"{card:.4f} (idle {1 - card / host:.1%}); ops by their kernels' "
-        f"card time: " + "; ".join(f"{k} {t:.4f} x{n:g}" for k, t, n in ops))
-
-
 def options_trainer(model, cams, images, init, alive, dev, options=True,
                     budget=0, writers=None):
     conf = TrainerConfig(
@@ -3046,21 +3020,27 @@ def options_trainer(model, cams, images, init, alive, dev, options=True,
                    writers=writers)
 
 
-def step_kernel_inputs(tr):
-    """One step of ``tr`` run with every kernel wrapper's arguments
-    captured (the decode's, the compositing forward's, its backward's with
-    the loss's cotangent, and every segment sum's), then the trainer's
-    state put back."""
-    snap = tr.state()
+def kernel_inputs_of(step):
+    """``step()`` run with every kernel wrapper's arguments captured (the
+    decode's, the compositing forward's, its backward's with the loss's
+    cotangent, and every segment sum's)."""
     with captured(tiles, "decode_bin_keys", 1) as dec, \
             captured(batched, "composite_batched_fwd", 1) as fwd, \
             captured(batched, "composite_batched_bwd", 1) as bwd, \
             captured(segsum, "segment_sum_sorted") as seg:
-        tr.train_one_step()
-    tr.load_state(snap)
-    tr.history.pop()
+        step()
     return {"decode_args": detached(dec[0]), "fwd_args": detached(fwd[0]),
             "bwd_args": detached(bwd[0]), "step_segsum_args": detached(seg)}
+
+
+def step_kernel_inputs(tr):
+    """The kernel inputs of one step of ``tr``, then the trainer's state
+    put back."""
+    snap = tr.state()
+    kin = kernel_inputs_of(tr.train_one_step)
+    tr.load_state(snap)
+    tr.history.pop()
+    return kin
 
 
 def same_trainer_state(a, b):
@@ -3287,8 +3267,8 @@ def options_path(dev, weights_dir):
         + f"; LPIPS work {lp_flops / 1e12:.3f} TFLOP a pair (VGG16 at "
         f"1280x720, float32), {lp_flops / lp_ms / 1e9:.1f} TFLOP/s")
     say_breakdown("path 9 bilateral slice + apply + TV, forward and backward "
-                  "(1280x720, grid 8x16x16x12)", grid_trace)
-    say_breakdown("path 9 options step, cached", step_trace)
+                  "(1280x720, grid 8x16x16x12)", grid_trace, say)
+    say_breakdown("path 9 options step, cached", step_trace, say)
     say(f"path 9 step (host clock, median (min, max)): options streamed "
         f"{statistics.median(nonevals):.4f} ({min(nonevals):.4f}, "
         f"{max(nonevals):.4f}) over the {len(nonevals)} steps without an "
@@ -3559,6 +3539,444 @@ def _pipeline_path(dev, root):
     return {"launches": launches, "errs": errs}
 
 
+# ------------------------------------ main path 11: multi-device training
+# The bench training scene on a (1, 1) mesh under NCCL at world size 1: the
+# smoke needs one card, and NCCL refuses two ranks on one GPU, so every
+# collective is a copy.  The steps start at step index 3, where every
+# SH band is live.
+SHARDED_STEPS = 10
+SHARDED_REFINE_AT = 5    # the sharded refine after this step
+TILE_STEPS = 10
+SMALL_CAP_STEPS = 2      # tile-sharded steps at send_cap = shard / 8
+SHARDED_STEP0 = 3
+SHARDED_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
+                    "segment_sum": 2}
+# The routed step adds two segment sums: the slab gather's backward
+# (expand_rows) and the statistics routed back to their shard.
+TILE_PER_STEP = dict(SHARDED_PER_STEP, segment_sum=4)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ShardedRun:
+    """This process's shard of a training state on a mesh: leaf parameters,
+    the alive mask, (Adam, schedule) and the statistics."""
+
+    def __init__(self, mesh, init, alive):
+        from collab_splats_tpu_torch.parallel.mesh import shard
+        from collab_splats_tpu_torch.train import optim
+
+        self.params = {k: shard(v, mesh).detach().clone().requires_grad_(
+            True) for k, v in init.items()}
+        self.alive = shard(alive, mesh).clone()
+        self.opt = optim.make_optimizer(self.params, optim.RADE_GS_GROUPS)
+        self.strat = strategy.init_state(self.alive.shape[0],
+                                         device=self.alive.device)
+
+    def bits(self):
+        """Copies of every tensor a step writes."""
+        moments = [v for st in self.opt[0].state.values()
+                   for k, v in sorted(st.items()) if k != "step"]
+        return [x.detach().clone() for x in
+                [*self.params.values(), *moments, *self.strat]]
+
+
+def sharded_path(dev):
+    """Main path 11: the sharded training step (``parallel/train.py``) at
+    the bench training scene's full width (1M Gaussians at capacity
+    1,262,144, sh_degree 3, 1280x720, depth-normal on, black background)
+    on a (1, 1) mesh under NCCL in this process.  Ten all-gather steps
+    with one sharded refine, then ten tile-sharded steps at send_cap =
+    shard and two at shard / 8, launch counts per step enforced; the first
+    step's loss and gradients against the single-device step, the routed
+    step against the all-gather one, a repeated step's bits, kernels 1-4
+    on both steps' own inputs, and the step times beside the single-device
+    step's.  Returns the launches and the kernels' errors."""
+    import torch.distributed as dist
+
+    from collab_splats_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        return _sharded_path(dev, pmesh.make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_path(dev, mesh):
+    from collab_splats_tpu_torch.parallel import train as ptrain
+
+    params, alive0, cams, cfg = make_scene("bench", dev, sh_degree=3)
+    model = rade_gs.RadeGSConfig(sh_degree=3, sh_degree_interval=1,
+                                 background="black", render=cfg.render,
+                                 regularization_from_iter=0)
+    with torch.no_grad():
+        images = [rade_gs.get_outputs(params, alive0, c, 3, model,
+                                      training=False)[0]["rgb"]
+                  for c in cams]
+    init, alive = perturbed_init(params, dev)
+    del params, alive0
+    cap, width, height = alive.shape[0], cams[0].width, cams[0].height
+    shard = cap // mesh.n_gauss
+    batches = [(ptrain.CameraBatch(c.K[None], c.c2w[None]), im[None])
+               for c, im in zip(cams, images)]
+
+    def make_step(run, **kw):
+        return ptrain.make_sharded_train_step(
+            mesh, run.opt, model, width, height, cap, reg_active=True, **kw)
+
+    def check_metrics(m, what):
+        v = {k: float(x) for k, x in m.items()}
+        if not (math.isfinite(v["loss"]) and math.isfinite(v["psnr"])):
+            raise AssertionError(f"{what}: {v}")
+        return v
+
+    # The first step's loss and gradients against the single-device step
+    # (get_outputs(training=True) + get_loss) on camera 0, and the routed
+    # step's against the all-gather step's, from the same state.
+    run = ShardedRun(mesh, init, alive)
+    ag = make_step(run)
+    with uncounted():
+        m_ag, g_ag = ag.gradients(run.params, run.alive, *batches[0],
+                                  SHARDED_STEP0)
+        m_tile, _ = make_step(run, tile_sharded=True).gradients(
+            run.params, run.alive, *batches[0], SHARDED_STEP0)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in init.items()}
+        out, _ = rade_gs.get_outputs(leaves, alive, cams[0], SHARDED_STEP0,
+                                     model, training=True,
+                                     compute_error_maps=True)
+        loss, _ = rade_gs.get_loss(out, images[0], leaves, alive,
+                                   SHARDED_STEP0, model, reg_active=True)
+        ref = torch.autograd.grad(loss, list(leaves.values()),
+                                  allow_unused=True)
+        loss = float(loss.detach())
+    m_ag, m_tile = check_metrics(m_ag, "sharded"), check_metrics(
+        m_tile, "tile-sharded")
+    if abs(m_ag["loss"] - loss) > 1e-5 * abs(loss):
+        raise AssertionError(f"sharded loss {m_ag['loss']} against the "
+                             f"single-device {loss}")
+    amask = alive.to(torch.float32)
+    grad_err, same = 0.0, m_ag["loss"] == loss
+    for (k, v), r in zip(leaves.items(), ref):
+        r = torch.zeros_like(v) if r is None else \
+            r * amask.reshape((-1,) + (1,) * (r.dim() - 1))
+        if r.numel():
+            grad_err = max(grad_err, assert_grad_close(
+                g_ag[k], r, f"sharded gradient of {k}"))
+        same = same and torch.equal(g_ag[k], r)
+    if abs(m_tile["loss"] - m_ag["loss"]) > 1e-4 * abs(m_ag["loss"]) \
+            or m_tile["spilled"] != m_ag["spilled"]:
+        raise AssertionError(f"tile-sharded {m_tile} against all-gather "
+                             f"{m_ag}")
+    say(f"parity sharded step (1x1 mesh, NCCL, bench training scene camera "
+        f"0, step index {SHARDED_STEP0}): loss {m_ag['loss']:.7f} against "
+        f"the single-device {loss:.7f}; pre-Adam gradients of "
+        f"{len(leaves)} tensors within the gradient tolerance (max abs err "
+        f"{grad_err:.3g}); loss and gradients bit-identical: {same}; "
+        f"tile-sharded loss {m_tile['loss']:.7f} (rel "
+        f"{abs(m_tile['loss'] / m_ag['loss'] - 1):.3g}), spilled "
+        f"{int(m_tile['spilled'])} = {int(m_ag['spilled'])}")
+    del leaves, out, loss, ref, g_ag
+    kin = kernel_inputs_of(lambda: ag(run.params, run.alive, run.strat,
+                                      *batches[0], SHARDED_STEP0))
+    del run, ag
+    torch.cuda.empty_cache()
+
+    # Main path 11: all-gather steps with the sharded refine, counted.
+    run = ShardedRun(mesh, init, alive)
+    ag = make_step(run)
+    hist, ag_ms, first = [], [], None
+    reset_counts()
+    for i in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, run.strat, m = ag(run.params, run.alive, run.strat,
+                             *batches[i % len(batches)], SHARDED_STEP0 + i)
+        hist.append(check_metrics(m, f"sharded step {i}"))
+        ag_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = run.bits()
+        if i + 1 == SHARDED_REFINE_AT:
+            # As on path 2: the 1% of seen rows with the largest mean
+            # gradient densify on this random scene.
+            st = run.strat
+            seen = run.alive & (st.count > 0)
+            avg = (st.grad_accum / torch.clamp(st.count, min=1.0))[seen]
+            scfg = strategy.StrategyConfig(
+                warmup_length=4, refine_every=REFINE_EVERY,
+                densify_grad_thresh=float(torch.quantile(avg, 0.99)))
+            refine = ptrain.make_sharded_refine_step(mesh, scfg)
+            n_before = int(run.alive.sum())
+            _, run.alive, run.strat, rc = refine(
+                run.params, run.alive, run.opt, run.strat, seed=1000 + i,
+                screen_cull=True)
+            rc = [int(x) for x in rc]
+            n_after = int(run.alive.sum())
+            if not all(rc[:3]):
+                raise AssertionError(f"sharded refine: dup, split, cull, "
+                                     f"dropped {rc}")
+    torch.cuda.synchronize()
+    ag_launches = counts()
+    want = {k: SHARDED_PER_STEP.get(k, 0) * SHARDED_STEPS
+            for k in ag_launches}
+    if ag_launches != want:
+        raise AssertionError(f"path 11 (all-gather): launches {ag_launches}"
+                             f", expected {want}")
+
+    # Tile-sharded steps from the same state, counted.
+    tile = make_step(run, tile_sharded=True)
+    small = make_step(run, tile_sharded=True, send_cap=shard // 8)
+    thist = []
+    reset_counts()
+    for i in range(TILE_STEPS + SMALL_CAP_STEPS):
+        step = tile if i < TILE_STEPS else small
+        _, run.strat, m = step(run.params, run.alive, run.strat,
+                               *batches[i % len(batches)],
+                               SHARDED_STEP0 + SHARDED_STEPS + i)
+        thist.append(check_metrics(m, f"tile-sharded step {i}"))
+    torch.cuda.synchronize()
+    tile_launches = counts()
+    n_tile = TILE_STEPS + SMALL_CAP_STEPS
+    want = {k: TILE_PER_STEP.get(k, 0) * n_tile for k in tile_launches}
+    if tile_launches != want:
+        raise AssertionError(f"path 11 (tile-sharded): launches "
+                             f"{tile_launches}, expected {want}")
+    if not all(h["spilled"] > thist[TILE_STEPS - 1]["spilled"]
+               for h in thist[TILE_STEPS:]):
+        raise AssertionError(f"send_cap {shard // 8}: no routing spill "
+                             f"{[h['spilled'] for h in thist]}")
+
+    # A repeated first step: the same bits.
+    run2 = ShardedRun(mesh, init, alive)
+    with uncounted():
+        _, run2.strat, _ = make_step(run2)(run2.params, run2.alive,
+                                           run2.strat, *batches[0],
+                                           SHARDED_STEP0)
+    again = run2.bits()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("a repeated sharded step gave other bits")
+    del first, again
+    tile2 = make_step(run2, tile_sharded=True)
+    tkin = kernel_inputs_of(lambda: tile2(run2.params, run2.alive,
+                                          run2.strat, *batches[0],
+                                          SHARDED_STEP0))
+    del run2
+    torch.cuda.empty_cache()
+    stop = model.render.stop_threshold
+    errs = check_step_kernels(kin, False, "sharded step", stop)
+    terrs = check_step_kernels(tkin, False, "tile-sharded step", stop)
+    errs = {k: max(v, terrs.get(k, 0.0)) for k, v in errs.items()}
+    del kin, tkin
+
+    # Step times (CUDA events, steady state over 2 and 10 steps) beside the
+    # single-device trainer's on the same scene, and a trace.
+    with uncounted():
+        def one(step):
+            return lambda: step(run.params, run.alive, run.strat,
+                                *batches[0], SHARDED_STEP0)
+
+        ag_s = profiling.timed(one(ag))
+        tile_s = profiling.timed(one(tile))
+        trace = device_breakdown(one(ag), reps=3, top=10)
+        del run, ag, tile, small
+        torch.cuda.empty_cache()
+        tr = Trainer(TrainerConfig(
+            model=model, max_iterations=1000, seed=0,
+            strategy=strategy.StrategyConfig(warmup_length=10 ** 7)),
+            cams, images, init, alive, device=dev)
+        single_s = profiling.timed(tr.train_one_step)
+        del tr
+    torch.cuda.empty_cache()
+    say(f"main path 11 (multi-device, 1x1 mesh under NCCL at world size "
+        f"1): {SHARDED_STEPS} all-gather steps of the bench training scene "
+        f"(capacity {cap}, {width}x{height}, sh_degree 3, depth-normal on), "
+        f"launches "
+        f"{ag_launches}; losses " + ", ".join(f"{h['loss']:.5f}"
+                                              for h in hist)
+        + f"; sharded refine after step {SHARDED_REFINE_AT}: dup {rc[0]}, "
+        f"split {rc[1]}, cull {rc[2]}, dropped {rc[3]}, Gaussians "
+        f"{n_before} -> {n_after}; "
+        f"{TILE_STEPS} tile-sharded steps at send_cap {shard} and "
+        f"{SMALL_CAP_STEPS} at {shard // 8}, launches {tile_launches}; "
+        f"losses " + ", ".join(f"{h['loss']:.5f}" for h in thist)
+        + "; spilled " + ", ".join(str(int(h["spilled"])) for h in thist)
+        + "; a repeated step gave the same bits (parameters, Adam moments, "
+        "statistics)")
+    say(f"path 11 step (host clock, median (min, max) over "
+        f"{SHARDED_STEPS}): all-gather {statistics.median(ag_ms):.4f} "
+        f"({min(ag_ms):.4f}, {max(ag_ms):.4f}, the refine not included); "
+        f"steady state (utils/profiling.timed, CUDA events, (t(10) - t(2)) "
+        f"/ 8, camera 0): all-gather {ag_s * 1e3:.4f} ms, tile-sharded "
+        f"{tile_s * 1e3:.4f} ms, single-device trainer step "
+        f"{single_s * 1e3:.4f} ms")
+    say_breakdown("path 11 all-gather step", trace, say)
+    return {"launches": {k: ag_launches[k] + tile_launches[k]
+                         for k in ag_launches}, "errs": errs}
+
+
+# ------------------------- main path 12: the golden renderer, analytic fit
+GOLDEN_N, GOLDEN_SIZE = 4096, 512
+ANALYTIC_VIEWS, ANALYTIC_WIDTH, ANALYTIC_HEIGHT = 8, 640, 480
+ANALYTIC_POINTS = 100_000
+ANALYTIC_STEPS = 300
+# tests/test_render.py:153-158.
+GOLDEN_ATOL = {"color": 2e-5, "alpha": 2e-5, "normal": 2e-5, "depth": 2e-4,
+               "median_depth": 2e-4}
+
+
+def golden_path(dev):
+    """Main path 12: ``render_golden`` on the card at a seeded scene that
+    neither tiled renderer spills (4,096 Gaussians at 512x512), both tiled
+    renderers held against it; then the analytic scene (``data/
+    analytic.py``: eight 640x480 views ray-traced on the host, 100,000
+    seed points, ``init_from_points``) fitted by the trainer for 300 steps,
+    whose mean training-view PSNR must rise by 3 dB, kernels 1-4 held
+    against their plain versions on one fit step's own inputs, and a TSDF
+    mesh's accuracy and completeness against the true surfaces (printed).
+    Returns the launches and the kernels' max abs errors."""
+    from collab_splats_tpu_torch.core.golden import render_golden
+    from collab_splats_tpu_torch.core.sh import sh0_to_rgb
+    from collab_splats_tpu_torch.data import analytic
+    from collab_splats_tpu_torch.train import losses
+    from collab_splats_tpu_torch.utils.metrics import (calculate_accuracy,
+                                                       calculate_completeness)
+
+    params, _, cams, cfg = make_scene("flagship", dev, n=GOLDEN_N,
+                                      width=GOLDEN_SIZE, height=GOLDEN_SIZE)
+    opts = dataclasses.replace(cfg.render, tile_capacity=512,
+                               max_intersections=1 << 18)
+    args = (params["means"], params["quats"], torch.exp(params["scales"]),
+            torch.sigmoid(params["opacities"][:, 0]),
+            sh0_to_rgb(params["features_dc"]))
+    cam = cams[0]
+    reset_counts()
+    with torch.no_grad():
+        tiled = {"xla": rasterize.render_tiled(*args, cam, opts)[0],
+                 "pallas": rasterize.render_tiled_pallas(*args, cam,
+                                                         opts)[0]}
+        gold = render_golden(*args, None, cam, opts)
+        golden_ms = timings(lambda: render_golden(*args, None, cam, opts),
+                            host_clock=True, reps=3)
+    errs = {}
+    for backend, out in tiled.items():
+        if int(out.spilled) != 0:
+            raise AssertionError(f"golden scene: {backend} spilled "
+                                 f"{int(out.spilled)}")
+        for name, atol in GOLDEN_ATOL.items():
+            err = float((getattr(out, name) - getattr(gold, name)).abs()
+                        .max())
+            if not err <= atol:
+                raise AssertionError(f"render_tiled ({backend}) {name} off "
+                                     f"the golden by {err} > {atol}")
+            errs[f"{backend} {name}"] = err
+    cover = float((gold.alpha > 0).float().mean())
+    say(f"main path 12 (golden renderer): render_golden of {GOLDEN_N} "
+        f"Gaussians at {GOLDEN_SIZE}x{GOLDEN_SIZE} (covered share "
+        f"{cover:.4f}) in {statistics.median(golden_ms):.1f} ms (host "
+        f"clock, median of {len(golden_ms)}); spilled 0 in both tiled "
+        f"renderers; max abs err against it: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()))
+
+    # The analytic scene, fitted.
+    scene = analytic.default_scene(seed=7)
+    acams = synthetic.orbit_cameras(
+        ANALYTIC_VIEWS, radius=3.2, width=ANALYTIC_WIDTH,
+        height=ANALYTIC_HEIGHT, focal=0.9 * ANALYTIC_WIDTH, device=dev)
+    renders, trace_ms = [], []
+    for c in acams:
+        t0 = time.perf_counter()
+        renders.append(analytic.render_analytic(scene, c))
+        trace_ms.append((time.perf_counter() - t0) * 1e3)
+    cloud = analytic.seed_points_from_views(scene, acams, renders,
+                                            ANALYTIC_POINTS, seed=0)
+    (init, ialive), init_ms = host_ms(lambda: gaussians.init_from_points(
+        cloud["points"], np.clip(cloud["colors"], 0.02, 0.98),
+        torch.Generator(device=dev).manual_seed(0), sh_degree=3,
+        device=dev))
+    images = [torch.from_numpy(r["rgb"]).to(dev) for r in renders]
+    model = rade_gs.RadeGSConfig(
+        sh_degree=3, sh_degree_interval=100, background="black",
+        render=RenderOptions(rasterize_mode="antialiased"),
+        use_depth_normal_loss=False)
+    tr = Trainer(TrainerConfig(
+        model=model, max_iterations=ANALYTIC_STEPS,
+        strategy=strategy.StrategyConfig(warmup_length=10 ** 7)),
+        acams, images, init, ialive, device=dev)
+
+    @torch.no_grad()
+    def view_psnr():
+        return [float(losses.psnr(rade_gs.get_outputs(
+            tr.params, tr.alive, c, tr.step, model, training=False)[0]["rgb"],
+            im)) for c, im in zip(acams, images)]
+
+    before = view_psnr()
+    with uncounted():
+        kin = step_kernel_inputs(tr)
+    t0 = time.perf_counter()
+    for _ in range(ANALYTIC_STEPS):
+        last = tr.train_one_step()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = view_psnr()
+    gain = statistics.mean(after) - statistics.mean(before)
+    say(f"main path 12 (analytic fit): default_scene(seed=7), "
+        f"{ANALYTIC_VIEWS} views at {ANALYTIC_WIDTH}x{ANALYTIC_HEIGHT} "
+        f"ray-traced on the host in {statistics.median(trace_ms):.1f} ms a "
+        f"view (median), {ANALYTIC_POINTS} seed points, init_from_points "
+        f"{init_ms:.1f} ms; {ANALYTIC_STEPS} steps in {fit_s:.2f} s, last "
+        f"loss {last['loss']:.5f}, {last['num_gaussians']} Gaussians; mean "
+        f"training-view PSNR {statistics.mean(before):.2f} -> "
+        f"{statistics.mean(after):.2f} dB ({gain:+.2f})")
+    if not gain >= 3.0:
+        raise AssertionError(f"analytic fit: PSNR rose by {gain:.2f} dB")
+    launches = counts()
+    renders_done = 2 * ANALYTIC_VIEWS
+    want = {k: 0 for k in launches}
+    want.update(decode=ANALYTIC_STEPS + renders_done + 2,
+                composite=ANALYTIC_STEPS + renders_done + 1,
+                composite_bwd=ANALYTIC_STEPS,
+                segment_sum=2 * ANALYTIC_STEPS, composite_tiles=1)
+    if launches != want:
+        raise AssertionError(f"path 12: launches {launches}, expected "
+                             f"{want}")
+    # One fit step traced, then the trainer's state put back.
+    with uncounted():
+        snap = tr.state()
+        trace = device_breakdown(tr.train_one_step, reps=3, top=10)
+        tr.load_state(snap)
+        del tr.history[-4:], snap
+    say_breakdown("path 12 analytic fit step", trace, say)
+
+    # The TSDF mesh against the true surfaces (printed, no gate).
+    ex = exporters.TSDFFusionExporter(
+        tr.params, tr.alive, model, exporters.TSDFExporterConfig(
+            voxel_size=0.02, sdf_trunc=0.06, depth_trunc=12.0, max_dim=256,
+            align_floor=False, min_component_fraction=0.0))
+    res, mesh_ms = host_ms(lambda: ex.main(acams))
+    verts = res["vertices"]
+    surface = analytic.sample_gt_surface(scene, 200_000, seed=0)
+    say(f"path 12 TSDF mesh of the fit ({ANALYTIC_VIEWS} views, voxel "
+        f"0.02, max_dim 256): {len(verts)} vertices in {mesh_ms:.0f} ms; "
+        f"accuracy (90th percentile distance to the true surface) "
+        f"{calculate_accuracy(verts, surface):.4f}, completeness (share of "
+        f"true-surface samples within 0.05) "
+        f"{calculate_completeness(verts, surface):.2f}%")
+    errs = check_step_kernels(kin, False, "path 12 analytic step",
+                              model.render.stop_threshold)
+    del tr, ex, images, kin
+    torch.cuda.empty_cache()
+    return {"launches": launches, "errs": errs}
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3770,6 +4188,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         pipe = pipeline_path(dev)
     torch.cuda.empty_cache()
+
+    # Main path 11, multi-device training on a 1x1 mesh under NCCL; main
+    # path 12, the golden renderer and the analytic fit.
+    sharded = sharded_path(dev)
+    torch.cuda.empty_cache()
+    golden = golden_path(dev)
+    torch.cuda.empty_cache()
     for backend, f in (("xla", fx), ("pallas", fp)):
         say(f"layers of the rade-features {backend} train step, bench scene "
             f"camera 0 (median of {REPS}, ms): " + ", ".join(
@@ -3969,7 +4394,8 @@ def main() -> int:
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
     # launches summed over the training main paths, mesh extraction, the
-    # feature towers, the trainer's options and the pipeline.
+    # feature towers, the trainer's options, the pipeline, multi-device
+    # training and the golden and analytic path.
     path_launches = {"path 2 (xla)": launches, "path 4 (pallas)": plaunches,
                      "path 5 (rade-features, xla)": fx["launches"],
                      "path 6 (rade-features, pallas)": fp["launches"],
@@ -3977,15 +4403,17 @@ def main() -> int:
                      "path 7 (mesh extraction)": mesh_launches,
                      "path 8 (feature towers)": tw["launches"],
                      "path 9 (trainer options)": opt["launches"],
-                     "path 10 (pipeline)": pipe["launches"]}
-    say("launches per training, meshing, tower, options and pipeline main "
-        "path: " + "; ".join(
+                     "path 10 (pipeline)": pipe["launches"],
+                     "path 11 (multi-device)": sharded["launches"],
+                     "path 12 (golden, analytic fit)": golden["launches"]}
+    say("launches per training, meshing, tower, options, pipeline, "
+        "multi-device and golden main path: " + "; ".join(
         f"{k}: { {n: v for n, v in p.items() if v} }"
         for k, p in path_launches.items()))
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in launches}
     feature_errs = [fx["errs"], fp["errs"], tw["errs"], opt["errs"],
-                    pipe["errs"]]
+                    pipe["errs"], sharded["errs"], golden["errs"]]
     kernels = []
     for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",

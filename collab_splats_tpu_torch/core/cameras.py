@@ -55,6 +55,16 @@ class Camera:
         """Camera position in world coordinates, [3]."""
         return self.c2w[:3, 3]
 
+    def resized(self, factor: float) -> "Camera":
+        """The camera rendering at ``1/factor`` of the resolution: rounded
+        sizes, the first two rows of K scaled."""
+        scale = 1.0 / factor
+        K = self.K.clone()
+        K[:2] *= scale
+        return dataclasses.replace(self, K=K,
+                                   width=int(round(self.width * scale)),
+                                   height=int(round(self.height * scale)))
+
     def downscaled(self, factor: int) -> "Camera":
         """The camera at 1/``factor`` of the resolution: floor-division
         sizes (so an image box-filtered by ``factor`` and the camera agree
@@ -126,6 +136,17 @@ def opengl_c2w_to_colmap_w2c(c2w_gl: torch.Tensor) -> torch.Tensor:
     w2c[:3, 3] = -(R_inv @ t)
     w2c[3, 3] = 1.0
     return w2c
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    """Field of view (radians) of ``pixels`` at focal length ``focal``."""
+    return 2.0 * float(np.arctan(pixels / (2.0 * focal)))
+
+
+def fov2focal(fov: float, pixels: int) -> float:
+    """Focal length giving field of view ``fov`` (radians) over
+    ``pixels``."""
+    return pixels / (2.0 * float(np.tan(fov / 2.0)))
 
 
 def pixel_centers(width: int, height: int, device=None):

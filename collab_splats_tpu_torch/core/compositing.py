@@ -56,6 +56,63 @@ def splat_alpha(du: torch.Tensor, dv: torch.Tensor, conic: torch.Tensor,
     return torch.where(keep, alpha, torch.zeros_like(alpha))
 
 
+class CompositeOutput(NamedTuple):
+    color: torch.Tensor         # [..., C]
+    alpha: torch.Tensor         # [...]
+    depth: torch.Tensor         # [...] expected depth
+    median_depth: torch.Tensor  # [...]
+    normal: torch.Tensor        # [..., 3]
+    weights: torch.Tensor       # [..., L] per-splat compositing weights
+
+
+def transmittance_weights(alphas: torch.Tensor) -> torch.Tensor:
+    """Front-to-back weights ``w_k = alpha_k * prod_{j<k} (1 - alpha_j)``
+    along the last axis (an exclusive cumulative product)."""
+    t_incl = torch.cumprod(1.0 - alphas, dim=-1)
+    t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]],
+                       dim=-1)
+    return alphas * t_excl
+
+
+def median_select(weights: torch.Tensor,
+                  depth_per_pixel: torch.Tensor) -> torch.Tensor:
+    """Depth of the first splat whose accumulated weight reaches 1/2, or of
+    the heaviest splat where none does.  The selection is not
+    differentiated; the depth gradient flows through the selected splat."""
+    crossed = torch.cumsum(weights, dim=-1) >= 0.5
+    # argmax returns the first maximal index: the first crossing.
+    cross_idx = torch.argmax(crossed.to(torch.uint8), dim=-1)
+    fallback_idx = torch.argmax(weights, dim=-1)
+    idx = torch.where(crossed.any(dim=-1), cross_idx, fallback_idx).detach()
+    return torch.gather(depth_per_pixel, -1, idx[..., None])[..., 0]
+
+
+def composite(alphas: torch.Tensor, depth_per_pixel: torch.Tensor,
+              colors: torch.Tensor, normals: torch.Tensor,
+              normalize_depth: bool = True) -> CompositeOutput:
+    """Front-to-back composite along the trailing splat axis L, dense: the
+    naive renderer's compositor (``core/golden.py``).
+
+    ``alphas`` and ``depth_per_pixel`` are [..., L] (front to back),
+    ``colors`` [..., L, C] and ``normals`` [..., L, 3].  The expected depth
+    is divided by the accumulated alpha when ``normalize_depth``; the
+    median depth is 0 where nothing was hit.
+    """
+    weights = transmittance_weights(alphas)
+    # 1 - prod(1 - a) equals sum(weights) but cannot round above 1.
+    alpha_out = 1.0 - torch.prod(1.0 - alphas, dim=-1)
+    color_out = torch.sum(weights[..., None] * colors, dim=-2)
+    normal_out = torch.sum(weights[..., None] * normals, dim=-2)
+    depth_acc = torch.sum(weights * depth_per_pixel, dim=-1)
+    depth_out = depth_acc / torch.clamp(alpha_out, min=1e-10) \
+        if normalize_depth else depth_acc
+    median = median_select(weights, depth_per_pixel)
+    median = torch.where(alpha_out > 0.0, median, torch.zeros_like(median))
+    return CompositeOutput(color=color_out, alpha=alpha_out, depth=depth_out,
+                           median_depth=median, normal=normal_out,
+                           weights=weights)
+
+
 # Added to ln(255 opacity) by :func:`sigma_cut`: far more than the float32
 # rounding of the log, of exp and of the product opacity * exp(-sigma)
 # (together below 2e-5 in sigma), so the cull never drops a live pair.

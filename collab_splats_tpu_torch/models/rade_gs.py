@@ -122,6 +122,19 @@ def get_outputs(
         activated_opacity(params, alive), colors, camera, config.render,
         absgrad_sink=absgrad_sink, alive_mask=alive.to(torch.bool),
     )
+    return outputs_from_render(out, camera, config, generator, training,
+                               compute_error_maps), meta
+
+
+def outputs_from_render(
+    out,
+    camera: Camera,
+    config: RadeGSConfig,
+    generator: Optional[torch.Generator] = None,
+    training: bool = True,
+    compute_error_maps: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """:func:`get_outputs`' dict from a whole-image ``RenderOutput``."""
     bg = background_color(config, generator, training, device=out.color.device)
     rgb = torch.clamp(out.color[..., :3] + (1.0 - out.alpha[..., None]) * bg,
                       0.0, 1.0)
@@ -153,7 +166,7 @@ def get_outputs(
         err = 1.0 - torch.sum(out.normal[None] * depth_normals, dim=-1)
         outputs["depth_normal_error_map"] = err[0][..., None]
         outputs["middepth_normal_error_map"] = err[1][..., None]
-    return outputs, meta
+    return outputs
 
 
 def get_loss(
@@ -164,17 +177,20 @@ def get_loss(
     step: int,
     config: RadeGSConfig,
     reg_active: bool = False,
+    scale_regularization: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and the per-term dict.
 
     ``reg_active`` switches the depth-normal term on (the trainer sets it
     from ``regularization_from_iter``); it needs the error maps of
-    ``get_outputs(compute_error_maps=True)``.
+    ``get_outputs(compute_error_maps=True)``.  ``scale_regularization=
+    False`` leaves the anisotropy penalty out whatever the config says
+    (the sharded step, whose processes hold a shard of ``params``).
     """
     loss_dict = {
         "rgb_loss": losses.rgb_loss(outputs["rgb"], image, config.ssim_lambda)
     }
-    if config.use_scale_regularization:
+    if config.use_scale_regularization and scale_regularization:
         # Splatfacto applies the anisotropy penalty only every 10th step.
         reg = losses.scale_regularization(
             params["scales"], alive.to(torch.float32), config.max_gauss_ratio)

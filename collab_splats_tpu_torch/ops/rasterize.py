@@ -275,17 +275,27 @@ def render_tiled_batch(
 def render_from_projections(
     proj: Projection,
     opac: torch.Tensor,
-    colors: torch.Tensor,
-    normal_cam: torch.Tensor,
+    colors: Optional[torch.Tensor],
+    normal_cam: Optional[torch.Tensor],
     camera: Camera,
     opts: RenderOptions = RenderOptions(),
     absgrad_sink: Optional[torch.Tensor] = None,
+    per_gauss: Optional[torch.Tensor] = None,
 ) -> tuple[RenderOutput, RenderMeta]:
-    """Binning + compositing from already-projected Gaussians."""
+    """Binning + compositing from already-projected Gaussians.
+
+    ``per_gauss`` optionally supplies the packed [N, 12+C] per-gaussian
+    matrix (:func:`pack_per_gauss`'s layout); then ``proj`` and ``opac``
+    feed only the binning, and ``colors`` and ``normal_cam`` are not
+    read.  The sharded training step (``parallel/train.py``) composites
+    a matrix gathered across devices this way.
+    """
     bins = bin_gaussians(proj, camera.width, camera.height, opts,
                          opacities=opac.detach())
     ts = opts.tile_size
-    g_full = window_rows(bins, pack_per_gauss(proj, opac, normal_cam, colors))
+    if per_gauss is None:
+        per_gauss = pack_per_gauss(proj, opac, normal_cam, colors)
+    g_full = window_rows(bins, per_gauss)
     if absgrad_sink is not None:
         g_full = torch.cat([g_full[..., :2] + absgrad_sink, g_full[..., 2:]],
                            dim=-1)

@@ -85,6 +85,16 @@ class TrainerConfig:
     dataset_hbm_budget_bytes: int = 4 << 30
 
 
+def step_generator(seed: int, step: int, salt: int, device,
+                   data_idx: int = 0) -> torch.Generator:
+    """The random stream ``salt`` (1: background, 2: split noise) of one
+    step, keyed by (seed, step) and, in the sharded step, by the ``data``
+    row as ``fold_in(key, data_idx)`` keys it; row 0 is the
+    single-device trainer's stream."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + 4 * step + salt + (data_idx << 40)) % (1 << 62))
+
+
 def _move_camera(cam: Camera, device) -> Camera:
     return dataclasses.replace(cam, K=cam.K.to(device),
                                c2w=cam.c2w.to(device))
@@ -216,8 +226,7 @@ class Trainer:
         noise), keyed by (seed, step) so a repeated or resumed step draws
         the same numbers.  It lives on the trainer's device, so the draws
         are made where they are used."""
-        return torch.Generator(device=self.device).manual_seed(
-            (self.config.seed * 1_000_003 + 4 * self.step + salt) % (1 << 62))
+        return step_generator(self.config.seed, self.step, salt, self.device)
 
     # ----------------------------------------------------------- the step
     def _train_step(self, camera: Camera, image: torch.Tensor,

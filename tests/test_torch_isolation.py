@@ -56,7 +56,10 @@ def test_every_module_imports_without_jax():
               "utils.lpips", "utils.pointcloud", "utils.visualization",
               "utils.colormaps", "data.png", "pipeline.config",
               "pipeline.colmap", "pipeline.hloc", "pipeline.equirect",
-              "pipeline.viewer", "pipeline.splatter", "pipeline.cli"):
+              "pipeline.viewer", "pipeline.splatter", "pipeline.cli",
+              "parallel.mesh", "parallel.collectives", "parallel.tiles",
+              "parallel.train", "core.golden", "data.analytic",
+              "utils.profiling"):
         assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]
@@ -191,3 +194,21 @@ def test_feature_entries_need_a_card_or_the_cpu(monkeypatch, tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", [
+    "make_mesh", "make_hybrid_mesh", "initialize_distributed"])
+def test_parallel_entries_need_a_card_or_the_cpu(monkeypatch, entry):
+    """The multi-device entry points take the card (NCCL) unless asked for
+    the CPU (gloo)."""
+    from collab_splats_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(pmesh, entry)()
+    if entry == "initialize_distributed":
+        assert pmesh.initialize_distributed(device_type="cpu") == 0
+    else:
+        with pytest.raises(RuntimeError, match="no process group"):
+            getattr(pmesh, entry)(device_type="cpu")
