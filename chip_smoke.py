@@ -9,7 +9,7 @@ the four compositing kernels also on the seeded edge cases of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
 ``backend="pallas"`` render against the ``"xla"`` render.  Then it drives
-the port's twelve main paths:
+the port's thirteen main paths:
 
 1. the forward render (``models/rade_gs.py::get_outputs``) on the flagship
    scene (20,000 Gaussians, 512x512) and on the bench scene (1M Gaussians,
@@ -91,7 +91,17 @@ the port's twelve main paths:
    tiled renderers held against it, then the analytic scene
    (``data/analytic.py``: eight 640x480 views ray-traced on the host,
    100,000 seed points) fitted for 300 steps (mean training-view PSNR up
-   by 3 dB) and meshed, the mesh's accuracy and completeness printed.
+   by 3 dB) and meshed, the mesh's accuracy and completeness printed;
+13. the entry points of ``collab_splats_tpu_torch/scripts/`` in this
+   process at the reference run's width (the analytic scene's 64 views at
+   640x360 ray-traced once, sh_degree 3, exact binning, 30,000 seeds,
+   capacity 262,144): ``scale_train`` over a shortened schedule (3,200
+   steps: downscale 4 -> 2 -> 1, SH degrees 1-3, refines from step 600,
+   the opacity reset at 3,100, the depth-normal phase from 2,200), a
+   fresh trainer resumed from step 2,000 and stopped after 2,400 whose
+   rows equal the first run's bit for bit, ``mesh_eval`` on the step-3,000
+   checkpoint, a 500-step ``--features`` leg and ``feature_chain_eval`` on
+   its checkpoint; kernels 1-4 held on one of its steps.
 
 It checks what comes out, the kernels each path launches (path 7 needs
 ``cpp/libmesh_repair.so``, built at first use), and prints
@@ -3977,6 +3987,266 @@ def golden_path(dev):
     return {"launches": launches, "errs": errs}
 
 
+# ------------------------------- main path 13: the at-scale training run
+SCALE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_scale"
+# The reference run's width (640x360, 64 views, sh_degree 3, exact
+# binning, 30,000 seed points, capacity 262,144) on a shortened schedule
+# that crosses every phase switch but the end of splitting: downscale
+# 4 -> 2 -> 1 at steps 1,000 and 2,000, SH degrees 1-3 at 1,000-3,000,
+# refines every 100 steps from 600, the opacity reset at 3,100, the
+# depth-normal phase from 2,200.
+SCALE_STEPS = 3200
+SCALE_FLAGS = ["--analytic-gt", "--sh-degree", "3", "--exact-binning",
+               "--seed-points", "30000", "--capacity", "262144",
+               "--res-schedule", "1000", "--reg-from", "2200",
+               "--save-every", "1000"]
+SCALE_RESUME_FROM = 2000   # the resumed leg crosses the phase flip at 2,200
+SCALE_KILL_AT = 2400
+SCALE_MESH_AT = 3000
+SCALE_FEATURE_STEPS = 500
+SCALE_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
+                  "segment_sum": 2}
+
+
+def scale_launches(steps, renders, skipped=0):
+    """Launches of ``steps`` train steps (``skipped`` of them non-finite,
+    whose statistics are not summed) and ``renders`` evaluation renders."""
+    want = {k: 0 for k in counts()}
+    want.update({k: v * steps for k, v in SCALE_PER_STEP.items()})
+    want["segment_sum"] -= skipped
+    want["decode"] += renders
+    want["composite"] += renders
+    return want
+
+
+def counted_leg(what, want_fn, fn):
+    """``fn()`` with every launch count at 0 just before and read just
+    after; the counts must be ``want_fn(result)``."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = counts()
+    want = want_fn(out)
+    if got != want:
+        raise AssertionError(f"path 13 {what}: launches {got}, expected "
+                             f"{want}")
+    return out, got
+
+
+def spread(ms):
+    q = statistics.quantiles(ms, n=10)
+    return (f"median {statistics.median(ms):.4f} ms (p10 {q[0]:.4f}, p90 "
+            f"{q[-1]:.4f}, min {min(ms):.4f}, max {max(ms):.4f}, "
+            f"{len(ms)} steps)")
+
+
+def history_rows(path):
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
+
+
+def stage_totals(times):
+    """'name total s (calls)' for each stage that ran."""
+    return "; ".join(f"{k} {sum(t):.4f} s ({len(t)})"
+                     for k, t in times.items())
+
+
+def scale_path(dev):
+    """Main path 13: the port's ``scripts/`` entry points in this process
+    at the reference run's full width.  ``scale_train.run`` trains the
+    shortened schedule (3,200 steps, a checkpoint every 1,000, an 8-view
+    eval every 500); a fresh trainer resumes from the step-2,000
+    checkpoint with the same flags and is stopped after step 2,400, as a
+    kill would, and its 400 rows must equal the first run's bit for bit
+    (every key but ``wall_s``); ``evaluate_mesh`` meshes the step-3,000
+    checkpoint against the scene's true surfaces; a 500-step
+    ``--features`` leg on the same traced frames is checkpointed and
+    ``run_chain`` meshes and queries it.  Kernels 1-4 are held against
+    their plain versions on one step of the resumed trainer.  Returns the
+    launches and the kernels' max abs errors."""
+    from collab_splats_tpu_torch.scripts import (feature_chain_eval,
+                                                 mesh_eval, scale_train)
+
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    extractors._default_extractor.cache_clear()   # the offline towers
+    run_dir, feat_dir = SCALE_DIR / "run", SCALE_DIR / "features"
+    flags = SCALE_FLAGS + ["--steps", str(SCALE_STEPS), "--out",
+                           str(run_dir)]
+    args = scale_train.parse_args(flags)
+    frames, trace_ms = host_ms(lambda: scale_train.make_frames(args, dev))
+
+    def quiet(_):
+        """The scripts' progress lines; path 13 prints its own."""
+
+    def eval_renders(n_evals):
+        return n_evals * args.eval_cams + len(frames.cameras[::8])
+
+    # The shortened schedule.
+    res, main_launches = counted_leg(
+        "training", lambda r: scale_launches(
+            SCALE_STEPS, eval_renders(len(r.evals)),
+            r.summary["nonfinite_grad_steps"]),
+        lambda: scale_train.run(args, frames=frames, log=quiet))
+    summ = res.summary
+    hist = history_rows(run_dir / "history.jsonl")
+    if [h["step"] for h in hist] != list(range(1, SCALE_STEPS + 1)):
+        raise AssertionError(f"path 13: history steps are not 1.."
+                             f"{SCALE_STEPS}")
+    bad = [h["step"] for h in hist
+           if not all(math.isfinite(v) for v in h.values())]
+    if bad or summ["nonfinite_grad_steps"]:
+        raise AssertionError(f"path 13: non-finite rows {bad[:5]}, "
+                             f"{summ['nonfinite_grad_steps']} non-finite "
+                             f"steps")
+    refines = [h["step"] for h in hist if "refine_cull" in h]
+    reg = [h["step"] for h in hist if "depth_normal_loss" in h]
+    if not reg or reg[0] != args.reg_from + 1 or not refines:
+        raise AssertionError(f"path 13: depth-normal rows from {reg[:1]}, "
+                             f"{len(refines)} refines")
+    psnrs = [e["eval_psnr"] for e in res.evals]
+    if not summ["final_psnr_mean"] > psnrs[0]:
+        raise AssertionError(f"path 13: eval PSNR {psnrs[0]:.2f} -> final "
+                             f"{summ['final_psnr_mean']:.2f} dB")
+    ms, r, g = res.step_ms, args.res_schedule, args.reg_from
+    say(f"main path 13 (scale_train, {args.width}x{args.height}, "
+        f"{len(frames.cameras)} ray-traced views in {trace_ms / 1e3:.1f} s, "
+        f"{args.seed_points} seeds, capacity {args.capacity}, "
+        f"{SCALE_STEPS} steps): launches {main_launches}; step (CUDA "
+        f"events) {spread(ms)}; at downscale 4 "
+        f"{statistics.median(ms[:r]):.4f}, 2 "
+        f"{statistics.median(ms[r:2 * r]):.4f}, 1 "
+        f"{statistics.median(ms[2 * r:g]):.4f}, 1 with depth-normal "
+        f"{statistics.median(ms[g:]):.4f} ms (medians)")
+    say("path 13 evals (step: 8-view PSNR dB / SSIM / N): " + ", ".join(
+        f"{e['step']}: {e['eval_psnr']:.2f} / {e['eval_ssim']:.4f} / "
+        f"{e['num_gaussians']}" for e in res.evals)
+        + f"; final {summ['final_psnr_mean']:.4f} dB / SSIM "
+        f"{summ['final_ssim_mean']:.4f}; peak N {summ['peak_gaussians']}, "
+        f"final {summ['final_gaussians']}, max spill "
+        f"{summ['max_spill_seen']}, non-finite steps "
+        f"{summ['nonfinite_grad_steps']}, {len(refines)} refines, "
+        f"depth-normal from step {int(reg[0])}")
+    wall = [h["wall_s"] * 1e3 for h in hist]
+    outside = (summ["wall_clock_s"] - sum(res.eval_s) - sum(res.save_s)
+               ) * 1e3 - sum(wall)
+    say(f"path 13 loop: step on the host clock median "
+        f"{statistics.median(wall):.4f} ms (CUDA events "
+        f"{statistics.median(ms):.4f}); outside the steps, evals and saves "
+        f"(history rows, the final eval) {outside / len(wall):.4f} ms a "
+        f"step")
+    say(f"path 13 stages (host clock): eval of 8 views "
+        f"{statistics.median(res.eval_s) * 1e3:.1f} ms (median of "
+        f"{len(res.eval_s)}), checkpoint save "
+        f"{statistics.median(res.save_s):.2f} s (median of "
+        f"{len(res.save_s)}), whole run {summ['wall_clock_s']:.1f} s")
+    del res
+    torch.cuda.empty_cache()
+
+    # A fresh trainer resumed from step 2,000 and stopped after 2,400.
+    rargs = scale_train.parse_args(flags + [
+        "--resume", str(run_dir / f"step-{SCALE_RESUME_FROM:08d}.ckpt.npz")])
+    steps = SCALE_KILL_AT - SCALE_RESUME_FROM
+    rres, resume_launches = counted_leg(
+        "resume", lambda r: scale_launches(steps, 0),
+        lambda: scale_train.run(rargs, frames=frames,
+                                stop_after=SCALE_KILL_AT, log=quiet))
+    first = history_rows(run_dir / "history_prekill.jsonl")
+    if first != hist:
+        raise AssertionError("path 13: history_prekill.jsonl is not the "
+                             "first run's history")
+    again = history_rows(run_dir / "history.jsonl")
+    strip = [{k: v for k, v in h.items() if k != "wall_s"} for h in again]
+    ref = [{k: v for k, v in h.items() if k != "wall_s"}
+           for h in hist[:SCALE_KILL_AT]]
+    differ = [r["step"] for r, g in zip(ref, strip) if r != g]
+    if len(again) != SCALE_KILL_AT or differ:
+        raise AssertionError(f"path 13 resume: {len(again)} rows, steps "
+                             f"{differ[:5]} differ from the first run")
+    say(f"path 13 resume: a fresh trainer from step {SCALE_RESUME_FROM} "
+        f"stopped after {SCALE_KILL_AT} (launches {resume_launches}): "
+        f"{steps} rows bit-identical to the first run's (every key but "
+        f"wall_s), across the depth-normal flip at {args.reg_from}; step "
+        f"(CUDA events) "
+        f"{spread(rres.step_ms)}")
+    tr = rres.trainer
+    with uncounted():
+        kin = step_kernel_inputs(tr)
+        # One step traced (the card's busy and idle time), then the
+        # trainer's state put back.
+        snap = tr.state()
+        trace = device_breakdown(tr.train_one_step, reps=3, top=10)
+        tr.load_state(snap)
+        del tr.history[-4:], snap
+    say_breakdown("path 13 at-scale step (step 2401, depth-normal on)",
+                  trace, say)
+    errs = check_step_kernels(kin, False, "path 13 at-scale step",
+                              tr.config.model.render.stop_threshold)
+    del rres, tr, kin
+    torch.cuda.empty_cache()
+
+    # The step-3,000 checkpoint meshed against the true surfaces.
+    mesh_stages = {}
+    mesh_ckpt = run_dir / f"step-{SCALE_MESH_AT:08d}.ckpt.npz"
+    (payload, mesh_ms), mesh_launches = counted_leg(
+        "mesh eval", lambda _: scale_launches(0, 32),
+        lambda: host_ms(lambda: mesh_eval.evaluate_mesh(
+            mesh_ckpt, device=dev, stage_times=mesh_stages)))
+    if not (payload["n_vertices"] > 0
+            and math.isfinite(payload["accuracy_p90"])):
+        raise AssertionError(f"path 13 mesh eval: {payload}")
+    say(f"path 13 mesh eval (step {payload['step']}, 32 views, voxel "
+        f"{payload['voxel_size']}): "
+        f"{payload['n_vertices']} vertices, accuracy p90 "
+        f"{payload['accuracy_p90']:.4f}, completeness "
+        f"{payload['completeness_pct']:.2f}% in {mesh_ms / 1e3:.2f} s ("
+        + stage_totals(mesh_stages) + ")")
+
+    # The rade-features leg on the same frames, then the chain.
+    fargs = scale_train.parse_args(SCALE_FLAGS + [
+        "--features", "--steps", str(SCALE_FEATURE_STEPS), "--save-every",
+        str(SCALE_FEATURE_STEPS), "--out", str(feat_dir)])
+    fres, feat_launches = counted_leg(
+        "features", lambda r: scale_launches(
+            SCALE_FEATURE_STEPS, eval_renders(len(r.evals)),
+            r.summary["nonfinite_grad_steps"]),
+        lambda: scale_train.run(fargs, frames=frames, log=quiet))
+    fsumm = fres.summary
+    fhist = history_rows(feat_dir / "history.jsonl")
+    floss = [h["features_loss"] for h in fhist]
+    q = len(floss) // 4
+    head, tail = statistics.mean(floss[:q]), statistics.mean(floss[-q:])
+    if fsumm["nonfinite_grad_steps"] or not tail < head:
+        raise AssertionError(f"path 13 features: {fsumm}, features_loss "
+                             f"{floss[:3]} ... {floss[-3:]}")
+    say(f"path 13 features ({SCALE_FEATURE_STEPS} steps, clip-vit and "
+        f"dinov2 maps of the 64 frames, 13 latents): launches "
+        f"{feat_launches}; step (CUDA events) {spread(fres.step_ms)}; "
+        f"final PSNR {fsumm['final_psnr_mean']:.2f} dB; features_loss "
+        f"{head:.6f} -> {tail:.6f} (means of the first and last {q} "
+        f"steps)")
+    del fres
+    torch.cuda.empty_cache()
+    chain_stages = {}
+    (stats, chain_ms), chain_launches = counted_leg(
+        "feature chain", lambda _: scale_launches(0, 32),
+        lambda: host_ms(lambda: feature_chain_eval.run_chain(
+            feat_dir, device=dev, stage_times=chain_stages)))
+    if not (stats["n_vertices"] > 0 and stats["latent_dim"] == 13
+            and 0.0 <= stats["similarity_min"] <= stats["similarity_max"]
+            <= 1.0):
+        raise AssertionError(f"path 13 feature chain: {stats}")
+    say(f"path 13 feature chain (step {stats['step']}): "
+        f"{stats['n_vertices']} vertices, similarity min "
+        f"{stats['similarity_min']:.4g}, max {stats['similarity_max']:.4g}, "
+        f"mean {stats['similarity_mean']:.4g} in {chain_ms / 1e3:.2f} s ("
+        + stage_totals(chain_stages) + ")")
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    launches = {k: sum(p[k] for p in (main_launches, resume_launches,
+                                      mesh_launches, feat_launches,
+                                      chain_launches))
+                for k in main_launches}
+    return {"launches": launches, "errs": errs}
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -4195,6 +4465,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     golden = golden_path(dev)
     torch.cuda.empty_cache()
+    # Main path 13, the at-scale training run and its evaluations through
+    # the entry points of collab_splats_tpu_torch/scripts/.
+    scale = scale_path(dev)
+    torch.cuda.empty_cache()
     for backend, f in (("xla", fx), ("pallas", fp)):
         say(f"layers of the rade-features {backend} train step, bench scene "
             f"camera 0 (median of {REPS}, ms): " + ", ".join(
@@ -4405,15 +4679,17 @@ def main() -> int:
                      "path 9 (trainer options)": opt["launches"],
                      "path 10 (pipeline)": pipe["launches"],
                      "path 11 (multi-device)": sharded["launches"],
-                     "path 12 (golden, analytic fit)": golden["launches"]}
+                     "path 12 (golden, analytic fit)": golden["launches"],
+                     "path 13 (at-scale run)": scale["launches"]}
     say("launches per training, meshing, tower, options, pipeline, "
-        "multi-device and golden main path: " + "; ".join(
+        "multi-device, golden and at-scale main path: " + "; ".join(
         f"{k}: { {n: v for n, v in p.items() if v} }"
         for k, p in path_launches.items()))
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in launches}
     feature_errs = [fx["errs"], fp["errs"], tw["errs"], opt["errs"],
-                    pipe["errs"], sharded["errs"], golden["errs"]]
+                    pipe["errs"], sharded["errs"], golden["errs"],
+                    scale["errs"]]
     kernels = []
     for key, name, src, tpu, lib in (
             ("decode", "decode_bin_keys", "binning_kernel.cu",

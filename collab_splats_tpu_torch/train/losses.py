@@ -33,9 +33,13 @@ _WINDOW_1D = _gaussian_window_1d()
 
 
 def _filter2d(img: torch.Tensor) -> torch.Tensor:
-    """Depthwise 'valid' Gaussian filter of [H, W, C]."""
-    c = img.shape[-1]
+    """Depthwise 'valid' Gaussian filter of [H, W, C].  An image with a
+    side under the window gives an empty map, as JAX's VALID convolution
+    does (so SSIM is the NaN mean of nothing, with zero gradient)."""
+    h, w, c = img.shape
     k = _WINDOW_1D.shape[0]
+    if h < k or w < k:
+        return img[:max(h - k + 1, 0), :max(w - k + 1, 0)]
     win = torch.as_tensor(_WINDOW_1D, device=img.device)
     x = img.permute(2, 0, 1)[None]                       # [1, C, H, W]
     y = F.conv2d(x, win.view(1, 1, k, 1).expand(c, 1, k, 1), groups=c)

@@ -59,7 +59,8 @@ def test_every_module_imports_without_jax():
               "pipeline.viewer", "pipeline.splatter", "pipeline.cli",
               "parallel.mesh", "parallel.collectives", "parallel.tiles",
               "parallel.train", "core.golden", "data.analytic",
-              "utils.profiling"):
+              "utils.profiling", "scripts.scale_train", "scripts.mesh_eval",
+              "scripts.feature_chain_eval", "scripts.reference_run"):
         assert f"collab_splats_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys"]

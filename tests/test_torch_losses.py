@@ -57,6 +57,24 @@ def test_image_losses_match(name):
     assert_match(got, ref)
 
 
+@pytest.mark.parametrize("shape", [(9, 16), (16, 9), (5, 5)])
+def test_rgb_loss_below_the_window_matches(shape):
+    """An image with a side under SSIM's 11-pixel window (a 64x36 view at
+    downscale 4 is 16x9): JAX's VALID filter is empty, so SSIM and the loss
+    are NaN while the gradient is L1's alone; the port raised here."""
+    rng = np.random.default_rng(1)
+    a, b = (rng.uniform(0, 1, shape + (3,)).astype(np.float32)
+            for _ in range(2))
+    (tv, tg), (jv, jg) = value_and_grads(jlosses.rgb_loss, tlosses.rgb_loss,
+                                         a, b)
+    assert np.isnan(jv) and np.isnan(tv)
+    assert np.isnan(float(tlosses.ssim(torch.from_numpy(a),
+                                       torch.from_numpy(b))))
+    for x, y in zip(tg, jg):
+        assert np.isfinite(y).all()
+        np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-9)
+
+
 def test_depth_normal_loss_matches():
     rng = np.random.default_rng(1)
     e1 = rng.uniform(0, 2, (H, W, 1)).astype(np.float32)
