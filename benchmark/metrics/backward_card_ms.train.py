@@ -1,0 +1,9 @@
+"""Card ms per training step of the span ``train.backward``: autograd's
+backward's stretch of the device timeline.  ``benchlib/spans.py`` has the
+arithmetic."""
+
+from benchlib import spans
+
+
+def read(layer):
+    return spans.card_ms_per_step(layer, "train", "train.backward")

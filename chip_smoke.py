@@ -163,8 +163,6 @@ from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 from collab_splats_tpu_torch.utils import profiling
-from collab_splats_tpu_torch.utils.profiling import (device_breakdown,
-                                                     say_breakdown)
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
 # the bounds below are computed from.
@@ -229,6 +227,35 @@ def timings(fn, host_clock=False, reps=REPS):
 
 def median_ms(fn, host_clock=False, reps=REPS):
     return statistics.median(timings(fn, host_clock, reps))
+
+
+def traced_totals(fn, reps=3):
+    """(reps, the program's span and counter totals) of ``reps`` calls of
+    ``fn``, each in the span ``smoke.call``, after one untraced call, read
+    inside ``utils/profiling.trace`` (into a temporary directory)."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d, profiling.trace(d):
+        for _ in range(reps):
+            with profiling.span("smoke.call"):
+                fn()
+        return reps, profiling.totals()
+
+
+def say_totals(what, traced, say):
+    """One line of :func:`traced_totals`: per call, each span's card ms
+    (its stretch of the device timeline), host ms and count, by card
+    time, then the counters."""
+    reps, totals = traced
+    spans = sorted(totals["spans"].items(),
+                   key=lambda kv: -(kv[1]["card_s"] or 0.0))
+    say(f"{what} (utils/profiling spans per call: card ms / host ms / "
+        f"count): " + "; ".join(
+            f"{k} {(v['card_s'] or 0.0) * 1e3 / reps:.4f} / "
+            f"{v['host_s'] * 1e3 / reps:.4f} / {v['count'] / reps:g}"
+            for k, v in spans)
+        + "; counters per call: " + ", ".join(
+            f"{k} {v / reps:g}" for k, v in sorted(totals["counters"].items())))
 
 
 def assert_grad_close(got, ref, what):
@@ -3175,8 +3202,8 @@ def options_path(dev, weights_dir):
     if diff:
         raise AssertionError(f"path 9: the streamed run and the cached run "
                              f"differ in {diff[:8]}")
-    step_trace = device_breakdown(lambda: tr.train(1, log_every=10 ** 9),
-                                  reps=2, top=12)
+    step_trace = traced_totals(lambda: tr.train(1, log_every=10 ** 9),
+                               reps=2)
     say(f"main path 9 (trainer options): {OPTIONS_STEPS} steps of the bench "
         f"training scene (1M Gaussians at capacity {ialive.shape[0]}, "
         f"1280x720, sh_degree 3, random background) with camera_opt "
@@ -3242,7 +3269,7 @@ def options_path(dev, weights_dir):
         out, tv = grid_fwd()
         return torch.autograd.grad(torch.sum(out * ct3) + tv, [g0])
 
-    grid_trace = device_breakdown(grid_fwd_bwd)
+    grid_trace = traced_totals(grid_fwd_bwd)
     layers = {
         "pose term (exp_so3, c2w, viewmat, and the backward of the "
         "projection's R_wc, t_wc over the capacity)": median_ms(pose_term),
@@ -3276,9 +3303,9 @@ def options_path(dev, weights_dir):
         "ms): " + "; ".join(f"{k} {v:.4f}" for k, v in layers.items())
         + f"; LPIPS work {lp_flops / 1e12:.3f} TFLOP a pair (VGG16 at "
         f"1280x720, float32), {lp_flops / lp_ms / 1e9:.1f} TFLOP/s")
-    say_breakdown("path 9 bilateral slice + apply + TV, forward and backward "
-                  "(1280x720, grid 8x16x16x12)", grid_trace, say)
-    say_breakdown("path 9 options step, cached", step_trace, say)
+    say_totals("path 9 bilateral slice + apply + TV, forward and backward "
+               "(1280x720, grid 8x16x16x12)", grid_trace, say)
+    say_totals("path 9 options step, cached", step_trace, say)
     say(f"path 9 step (host clock, median (min, max)): options streamed "
         f"{statistics.median(nonevals):.4f} ({min(nonevals):.4f}, "
         f"{max(nonevals):.4f}) over the {len(nonevals)} steps without an "
@@ -3796,7 +3823,7 @@ def _sharded_path(dev, mesh):
 
         ag_s = profiling.timed(one(ag))
         tile_s = profiling.timed(one(tile))
-        trace = device_breakdown(one(ag), reps=3, top=10)
+        trace = traced_totals(one(ag))
         del run, ag, tile, small
         torch.cuda.empty_cache()
         tr = Trainer(TrainerConfig(
@@ -3828,7 +3855,7 @@ def _sharded_path(dev, mesh):
         f"/ 8, camera 0): all-gather {ag_s * 1e3:.4f} ms, tile-sharded "
         f"{tile_s * 1e3:.4f} ms, single-device trainer step "
         f"{single_s * 1e3:.4f} ms")
-    say_breakdown("path 11 all-gather step", trace, say)
+    say_totals("path 11 all-gather step", trace, say)
     return {"launches": {k: ag_launches[k] + tile_launches[k]
                          for k in ag_launches}, "errs": errs}
 
@@ -3961,10 +3988,10 @@ def golden_path(dev):
     # One fit step traced, then the trainer's state put back.
     with uncounted():
         snap = tr.state()
-        trace = device_breakdown(tr.train_one_step, reps=3, top=10)
+        trace = traced_totals(tr.train_one_step)
         tr.load_state(snap)
         del tr.history[-4:], snap
-    say_breakdown("path 12 analytic fit step", trace, say)
+    say_totals("path 12 analytic fit step", trace, say)
 
     # The TSDF mesh against the true surfaces (printed, no gate).
     ex = exporters.TSDFFusionExporter(
@@ -4173,11 +4200,11 @@ def scale_path(dev):
         # One step traced (the card's busy and idle time), then the
         # trainer's state put back.
         snap = tr.state()
-        trace = device_breakdown(tr.train_one_step, reps=3, top=10)
+        trace = traced_totals(tr.train_one_step)
         tr.load_state(snap)
         del tr.history[-4:], snap
-    say_breakdown("path 13 at-scale step (step 2401, depth-normal on)",
-                  trace, say)
+    say_totals("path 13 at-scale step (step 2401, depth-normal on)",
+               trace, say)
     errs = check_step_kernels(kin, False, "path 13 at-scale step",
                               tr.config.model.render.stop_threshold)
     del rres, tr, kin

@@ -119,23 +119,19 @@ def camera_from_numpy(K: np.ndarray, c2w: np.ndarray, width: int,
     )
 
 
-# OpenGL (y up, z back) -> COLMAP/OpenCV (y down, z forward): negate y and z.
-_GL_TO_CV_DIAG = (1.0, -1.0, -1.0)
-
-
 def opengl_c2w_to_colmap_w2c(c2w_gl: torch.Tensor) -> torch.Tensor:
     """OpenGL camera-to-world -> COLMAP world-to-camera (viewmat), using the
-    closed-form rigid inverse ``[R | t]^-1 = [R^T | -R^T t]``."""
-    diag = torch.tensor(_GL_TO_CV_DIAG, dtype=c2w_gl.dtype,
-                        device=c2w_gl.device)
-    R = c2w_gl[:3, :3] * diag[None, :]
+    closed-form rigid inverse ``[R | t]^-1 = [R^T | -R^T t]``.  Built from
+    ``c2w_gl`` on its device alone: no host value is copied over, which on
+    a card would wait for its queue to drain."""
+    # OpenGL (y up, z back) -> COLMAP/OpenCV (y down, z forward): negate
+    # the y and z columns.
+    R = torch.cat([c2w_gl[:3, :1], -c2w_gl[:3, 1:3]], dim=1)
     t = c2w_gl[:3, 3]
     R_inv = R.T
-    w2c = torch.zeros((4, 4), dtype=c2w_gl.dtype, device=c2w_gl.device)
-    w2c[:3, :3] = R_inv
-    w2c[:3, 3] = -(R_inv @ t)
-    w2c[3, 3] = 1.0
-    return w2c
+    top = torch.cat([R_inv, -(R_inv @ t)[:, None]], dim=1)
+    bottom = torch.eye(4, dtype=c2w_gl.dtype, device=c2w_gl.device)[3:]
+    return torch.cat([top, bottom], dim=0)
 
 
 def focal2fov(focal: float, pixels: int) -> float:

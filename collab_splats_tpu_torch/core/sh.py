@@ -53,10 +53,10 @@ def eval_sh_basis(dirs: torch.Tensor, num_bases: int) -> torch.Tensor:
 def degree_mask(num_bases: int, active_degree: int,
                 device=None) -> torch.Tensor:
     """[num_bases] 0/1 float mask enabling bases of degree <= active_degree
-    (the degree of basis b is floor(sqrt(b)))."""
-    degs = torch.tensor([int(b ** 0.5 + 1e-6) for b in range(num_bases)],
-                        device=device)
-    return (degs <= int(active_degree)).to(torch.float32)
+    (the degree of basis b is floor(sqrt(b)), so the first (d + 1)^2
+    bases).  Made on ``device``, with no copy from the host."""
+    bases = torch.arange(num_bases, device=device)
+    return (bases < (int(active_degree) + 1) ** 2).to(torch.float32)
 
 
 def eval_sh(coeffs: torch.Tensor, dirs: torch.Tensor,

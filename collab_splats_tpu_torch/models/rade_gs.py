@@ -16,10 +16,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.cameras import Camera, depth_pair_to_normal
+from ..core.golden import RenderOutput
 from ..core.options import RenderOptions
 from ..core.sh import eval_sh
 from ..ops.rasterize import RenderMeta, render_tiled, render_tiled_pallas
 from ..train import losses
+from ..utils import profiling
 from .gaussians import GaussianParams, activated_opacity, activated_scales
 
 
@@ -109,21 +111,37 @@ def get_outputs(
     ``crop_box`` ([2, 3] world-space min/max corners) keeps only the
     Gaussians inside the box.
     """
+    out, meta = rasterize(params, alive, camera, step, config,
+                          absgrad_sink=absgrad_sink, crop_box=crop_box)
+    return outputs_from_render(out, camera, config, generator, training,
+                               compute_error_maps), meta
+
+
+def rasterize(
+    params: GaussianParams,
+    alive: torch.Tensor,
+    camera: Camera,
+    step: int,
+    config: RadeGSConfig,
+    absgrad_sink: Optional[torch.Tensor] = None,
+    crop_box: Optional[torch.Tensor] = None,
+) -> Tuple[RenderOutput, RenderMeta]:
+    """:func:`get_outputs`' render: the colours and the tiled rasterizer
+    of ``config.render.backend``, before the output dict."""
     if crop_box is not None:
         inside = torch.all((params["means"] >= crop_box[0][None, :])
                            & (params["means"] <= crop_box[1][None, :]),
                            dim=-1)
         alive = alive & inside
-    colors = compute_colors(params, camera, step, config)
+    with profiling.span("render.colors"):
+        colors = compute_colors(params, camera, step, config)
     render = render_tiled_pallas if config.render.backend == "pallas" \
         else render_tiled
-    out, meta = render(
+    return render(
         params["means"], params["quats"], activated_scales(params),
         activated_opacity(params, alive), colors, camera, config.render,
         absgrad_sink=absgrad_sink, alive_mask=alive.to(torch.bool),
     )
-    return outputs_from_render(out, camera, config, generator, training,
-                               compute_error_maps), meta
 
 
 def outputs_from_render(

@@ -31,6 +31,7 @@ from ..core.cameras import Camera
 from ..core.golden import RenderOutput
 from ..core.options import RenderOptions
 from ..core.projection import Projection, project_gaussians
+from ..utils import profiling
 from .cuda.batched import composite
 from .cuda.composite import CHUNK, composite_tiles
 from .segsum import expand_rows, spread_masked
@@ -135,24 +136,30 @@ class RenderMeta(NamedTuple):
 def _project(means, quats, scales, opacities, camera, opts, normals_world,
              alive_mask):
     """(projection, compositing opacity, camera-space normals) of a
-    render."""
-    viewmat = camera.viewmat()
-    proj = project_gaussians(
-        means, quats, scales, viewmat, camera.K, camera.width, camera.height,
-        eps2d=opts.eps2d, near_plane=opts.near_plane,
-        far_plane=opts.far_plane, radius_clip=opts.radius_clip,
-        opacities=opacities,
-    )
-    if alive_mask is not None:
-        proj = proj._replace(valid=proj.valid & alive_mask)
-    opac = opacities
-    if opts.rasterize_mode == "antialiased":
-        opac = opac * proj.compensation
-    if normals_world is not None:
-        normal_cam = normals_world @ viewmat[:3, :3].T
-    else:
-        normal_cam = proj.normal
-    return proj, opac, normal_cam
+    render, in the span ``render.project``, which counts the rows it runs
+    over (``render.rows``) and the alive ones (``render.alive``)."""
+    with profiling.span("render.project"):
+        rows = means.shape[0]
+        profiling.count("render.rows", rows)
+        profiling.count("render.alive", rows if alive_mask is None
+                        else alive_mask.sum)
+        viewmat = camera.viewmat()
+        proj = project_gaussians(
+            means, quats, scales, viewmat, camera.K, camera.width,
+            camera.height, eps2d=opts.eps2d, near_plane=opts.near_plane,
+            far_plane=opts.far_plane, radius_clip=opts.radius_clip,
+            opacities=opacities,
+        )
+        if alive_mask is not None:
+            proj = proj._replace(valid=proj.valid & alive_mask)
+        opac = opacities
+        if opts.rasterize_mode == "antialiased":
+            opac = opac * proj.compensation
+        if normals_world is not None:
+            normal_cam = normals_world @ viewmat[:3, :3].T
+        else:
+            normal_cam = proj.normal
+        return proj, opac, normal_cam
 
 
 def render_tiled(
@@ -210,37 +217,42 @@ def render_tiled_pallas(
                                       alive_mask)
     # The [T, K] windows are not composited on this path; binning still
     # builds them, and their spill count is replaced below.
-    bins = bin_gaussians(proj, camera.width, camera.height, opts,
-                         opacities=opac.detach())
-    ts = opts.tile_size
-    n_color = colors.shape[-1]
-    aligned_gid, aligned_starts, lens, valid = align_segments(
-        bins.starts, bins.sorted_gid, CHUNK)
-    per_gauss = pad_per_gauss(pack_per_gauss(proj, opac, normal_cam, colors))
-    k_cap = opts.tile_capacity or default_tile_capacity(means.shape[0])
-    max_chunks = max(-(-k_cap // CHUNK), 1)
-    packed = composite_tiles(per_gauss, aligned_gid, valid, aligned_starts,
-                             lens, bins.num_tiles_x, ts, n_color,
-                             opts.near_plane, opts.stop_threshold,
-                             max_chunks, sink=absgrad_sink)
-    color = packed[..., :n_color]
-    normal = packed[..., n_color:n_color + 3]
-    alpha = packed[..., n_color + 3]
-    depth_sum = packed[..., n_color + 4]
-    median = packed[..., n_color + 5]
-    if opts.normalize_depth:
-        depth = depth_sum / torch.clamp(alpha, min=1e-10)
-    else:
-        depth = depth_sum
-    out, meta = _stitch_outputs(color, alpha, depth, median, normal, bins,
-                                proj, camera, ts)
-    # bins.spilled counts what the K-slot windows cut; this compositor cuts
-    # at max_chunks * CHUNK (>= K) instead, so that term is swapped for the
-    # compositor's own.
-    tile_spill = torch.clamp(lens - k_cap, min=0).sum()
-    kernel_spill = torch.clamp(lens - max_chunks * CHUNK, min=0).sum() \
-        - tile_spill
-    out = out._replace(spilled=bins.spilled + kernel_spill.to(torch.int32))
+    with profiling.span("render.bin"):
+        bins = _bin(proj, opac, camera, opts)
+        aligned_gid, aligned_starts, lens, valid = align_segments(
+            bins.starts, bins.sorted_gid, CHUNK)
+    with profiling.span("render.composite"):
+        ts = opts.tile_size
+        n_color = colors.shape[-1]
+        per_gauss = pad_per_gauss(pack_per_gauss(proj, opac, normal_cam,
+                                                 colors))
+        k_cap = opts.tile_capacity or default_tile_capacity(means.shape[0])
+        max_chunks = max(-(-k_cap // CHUNK), 1)
+        packed = composite_tiles(per_gauss, aligned_gid, valid,
+                                 aligned_starts, lens, bins.num_tiles_x, ts,
+                                 n_color, opts.near_plane,
+                                 opts.stop_threshold, max_chunks,
+                                 sink=absgrad_sink)
+        color = packed[..., :n_color]
+        normal = packed[..., n_color:n_color + 3]
+        alpha = packed[..., n_color + 3]
+        depth_sum = packed[..., n_color + 4]
+        median = packed[..., n_color + 5]
+        if opts.normalize_depth:
+            depth = depth_sum / torch.clamp(alpha, min=1e-10)
+        else:
+            depth = depth_sum
+        out, meta = _stitch_outputs(color, alpha, depth, median, normal,
+                                    bins, proj, camera, ts)
+        # bins.spilled counts what the K-slot windows cut; this compositor
+        # cuts at max_chunks * CHUNK (>= K) instead, so that term is
+        # swapped for the compositor's own.
+        tile_spill = torch.clamp(lens - k_cap, min=0).sum()
+        kernel_spill = torch.clamp(lens - max_chunks * CHUNK, min=0).sum() \
+            - tile_spill
+        out = out._replace(spilled=bins.spilled
+                           + kernel_spill.to(torch.int32))
+    profiling.count("render.spilled", out.spilled)
     meta = meta._replace(aligned_gid=aligned_gid, aligned_valid=valid)
     return out, meta
 
@@ -290,27 +302,39 @@ def render_from_projections(
     read.  The sharded training step (``parallel/train.py``) composites
     a matrix gathered across devices this way.
     """
+    with profiling.span("render.bin"):
+        bins = _bin(proj, opac, camera, opts)
+    profiling.count("render.spilled", bins.spilled)
+    with profiling.span("render.composite"):
+        ts = opts.tile_size
+        if per_gauss is None:
+            per_gauss = pack_per_gauss(proj, opac, normal_cam, colors)
+        g_full = window_rows(bins, per_gauss)
+        if absgrad_sink is not None:
+            g_full = torch.cat([g_full[..., :2] + absgrad_sink,
+                                g_full[..., 2:]], dim=-1)
+        out_v, alpha, depth_acc, median, _ = composite(
+            g_full, bins.tile_mask.to(torch.float32), bins.num_tiles_x, ts,
+            opts.near_plane)
+        # out_v channel order follows g's value columns: normal ++ colours.
+        normal = out_v[..., :3]
+        color = out_v[..., 3:]
+        if opts.normalize_depth:
+            depth = depth_acc / torch.clamp(alpha, min=1e-10)
+        else:
+            depth = depth_acc
+        return _stitch_outputs(color, alpha, depth, median, normal, bins,
+                               proj, camera, ts)
+
+
+def _bin(proj: Projection, opac: torch.Tensor, camera: Camera,
+         opts: RenderOptions) -> TileBins:
+    """:func:`~.tiles.bin_gaussians` of a render; counts the splat-tile
+    intersections it was given, before any cut (``render.pairs``)."""
     bins = bin_gaussians(proj, camera.width, camera.height, opts,
                          opacities=opac.detach())
-    ts = opts.tile_size
-    if per_gauss is None:
-        per_gauss = pack_per_gauss(proj, opac, normal_cam, colors)
-    g_full = window_rows(bins, per_gauss)
-    if absgrad_sink is not None:
-        g_full = torch.cat([g_full[..., :2] + absgrad_sink, g_full[..., 2:]],
-                           dim=-1)
-    out_v, alpha, depth_acc, median, _ = composite(
-        g_full, bins.tile_mask.to(torch.float32), bins.num_tiles_x, ts,
-        opts.near_plane)
-    # out_v channel order follows g's value columns: normal ++ colours.
-    normal = out_v[..., :3]
-    color = out_v[..., 3:]
-    if opts.normalize_depth:
-        depth = depth_acc / torch.clamp(alpha, min=1e-10)
-    else:
-        depth = depth_acc
-    return _stitch_outputs(color, alpha, depth, median, normal, bins, proj,
-                           camera, ts)
+    profiling.count("render.pairs", lambda: bins.starts[-1] + bins.dropped)
+    return bins
 
 
 def _stitch_outputs(color, alpha, depth, median, normal, bins: TileBins,

@@ -38,6 +38,9 @@ class TileBins(NamedTuple):
     spilled: torch.Tensor     # [] int32 dropped intersections (global + tile)
     sorted_gid: torch.Tensor  # [M] int32 gaussian ids sorted by (tile, depth)
     starts: torch.Tensor      # [T+1] int32 segment starts into sorted_gid
+    # [] int64 intersections of the Gaussians the global cap dropped: with
+    # starts[-1], every intersection binning was given, before any cut.
+    dropped: torch.Tensor
 
 
 def default_max_intersections(n: int) -> int:
@@ -247,4 +250,5 @@ def _windows_from_sorted(sorted_key, sorted_gid, num_tiles, rank_bits,
         spilled=(dropped + tile_spill).to(torch.int32),
         sorted_gid=sorted_gid,
         starts=bounds,
+        dropped=dropped,
     )

@@ -17,6 +17,8 @@ the filters feed the cancellation E[x^2] - E[x]^2.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,6 +34,14 @@ def _gaussian_window_1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 _WINDOW_1D = _gaussian_window_1d()
 
 
+@functools.lru_cache(maxsize=None)
+def _window(device: torch.device) -> torch.Tensor:
+    """:data:`_WINDOW_1D` on ``device``, copied there once: a copy from the
+    host each call would wait for the card's queue to drain."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_WINDOW_1D, device=device)
+
+
 def _filter2d(img: torch.Tensor) -> torch.Tensor:
     """Depthwise 'valid' Gaussian filter of [H, W, C].  An image with a
     side under the window gives an empty map, as JAX's VALID convolution
@@ -40,7 +50,7 @@ def _filter2d(img: torch.Tensor) -> torch.Tensor:
     k = _WINDOW_1D.shape[0]
     if h < k or w < k:
         return img[:max(h - k + 1, 0), :max(w - k + 1, 0)]
-    win = torch.as_tensor(_WINDOW_1D, device=img.device)
+    win = _window(img.device)
     x = img.permute(2, 0, 1)[None]                       # [1, C, H, W]
     y = F.conv2d(x, win.view(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
     y = F.conv2d(y, win.view(1, 1, 1, k).expand(c, 1, 1, k), groups=c)

@@ -23,6 +23,14 @@ term, ``train/bilateral.py``), each one more Adam group.  Datasets over
 selected frame (and its feature maps) to the card each step.  ``writers``
 receive each step's metrics.  Evaluation reports PSNR and SSIM, and LPIPS
 wherever its VGG16 weights are found (``utils/lpips.py``).
+
+Each phase of a step is a span of ``utils/profiling.py`` (``train.step``
+around ``train.inputs``, ``train.render``, ``train.loss``,
+``train.backward``, ``train.update``, ``train.refine`` and
+``train.metrics``), and each of its blocking host reads a ``sync.*`` span:
+``sync.finite`` for the guard, ``sync.metrics`` for the metrics transfer,
+``sync.alive`` for the capacity check.  They record only under a
+``torch.profiler`` session.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..models import rade_features, rade_gs
 from ..models.gaussians import GaussianParams, grow_capacity, num_alive
 from ..ops.rasterize import absgrad_sink_shape, pallas_sink_shape
 from ..utils import lpips as lp
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import bilateral
 from . import camera_opt as co
@@ -233,91 +242,122 @@ class Trainer:
                     features_gt: Optional[Dict[str, torch.Tensor]],
                     reg_active: bool, downscale: int = 1,
                     cam_idx: int = 0) -> Dict[str, torch.Tensor]:
+        """Render, loss, backward and update of one step, each in its
+        span; returns what :meth:`_metric_tensors` reads."""
         cfg = self.config.model
         params, alive, cparams = self.params, self.alive, self.camera_params
-        if downscale > 1:
-            # ``camera`` comes downscaled (floor-division sizes); the
-            # ground truth is box-filtered to match, as Splatfacto does.
-            h, w = camera.height, camera.width
-            image = image[:h * downscale, :w * downscale].reshape(
-                h, downscale, w, downscale, -1).mean(dim=(1, 3))
-        cap = alive.shape[0]
         pallas = cfg.render.backend == "pallas"
-        sink_shape = pallas_sink_shape if pallas else absgrad_sink_shape
-        sink = torch.zeros(sink_shape(camera.width, camera.height, cap,
-                                      cfg.render),
-                           device=self.device, requires_grad=True)
-        if "camera_opt" in cparams:
-            camera = co.apply_pose_adjustment(
-                camera, cparams["camera_opt"][cam_idx])
-        outputs, meta = rade_gs.get_outputs(
-            params, alive, camera, self.step, cfg,
-            generator=self._generator(1), training=True,
-            compute_error_maps=reg_active, absgrad_sink=sink)
-        if "bilateral_grid" in cparams:
-            outputs = dict(outputs)
-            outputs["rgb"] = bilateral.apply_bilateral_grid(
-                cparams["bilateral_grid"][cam_idx], outputs["rgb"])
-        if features_gt is not None:
-            loss, ldict = rade_features.get_loss(
-                outputs, image, features_gt, params, self.decoder, alive,
-                self.step, cfg, reg_active=reg_active)
-            dparams = list(self.decoder.parameters())
-        else:
-            loss, ldict = rade_gs.get_loss(outputs, image, params, alive,
-                                           self.step, cfg,
-                                           reg_active=reg_active)
-            dparams = []
-        if "bilateral_grid" in cparams:
-            ldict["tv_loss"] = 10.0 * bilateral.total_variation_loss(
-                cparams["bilateral_grid"])
-            loss = loss + ldict["tv_loss"]
+        with profiling.span("train.inputs"):
+            if downscale > 1:
+                # ``camera`` comes downscaled (floor-division sizes); the
+                # ground truth is box-filtered to match, as Splatfacto
+                # does.
+                h, w = camera.height, camera.width
+                image = image[:h * downscale, :w * downscale].reshape(
+                    h, downscale, w, downscale, -1).mean(dim=(1, 3))
+            cap = alive.shape[0]
+            sink_shape = pallas_sink_shape if pallas else absgrad_sink_shape
+            sink = torch.zeros(sink_shape(camera.width, camera.height, cap,
+                                          cfg.render),
+                               device=self.device, requires_grad=True)
+            if "camera_opt" in cparams:
+                camera = co.apply_pose_adjustment(
+                    camera, cparams["camera_opt"][cam_idx])
+        with profiling.span("train.render"):
+            render, meta = rade_gs.rasterize(params, alive, camera,
+                                             self.step, cfg,
+                                             absgrad_sink=sink)
+        with profiling.span("train.loss"):
+            outputs = rade_gs.outputs_from_render(
+                render, camera, cfg, generator=self._generator(1),
+                training=True, compute_error_maps=reg_active)
+            if "bilateral_grid" in cparams:
+                outputs["rgb"] = bilateral.apply_bilateral_grid(
+                    cparams["bilateral_grid"][cam_idx], outputs["rgb"])
+            if features_gt is not None:
+                loss, ldict = rade_features.get_loss(
+                    outputs, image, features_gt, params, self.decoder, alive,
+                    self.step, cfg, reg_active=reg_active)
+                dparams = list(self.decoder.parameters())
+            else:
+                loss, ldict = rade_gs.get_loss(outputs, image, params, alive,
+                                               self.step, cfg,
+                                               reg_active=reg_active)
+                dparams = []
+            if "bilateral_grid" in cparams:
+                ldict["tv_loss"] = 10.0 * bilateral.total_variation_loss(
+                    cparams["bilateral_grid"])
+                loss = loss + ldict["tv_loss"]
         names = list(params)
         cnames = list(cparams)
-        grads = torch.autograd.grad(
-            loss, [params[k] for k in names]
-            + [cparams[k] for k in cnames] + dparams + [sink],
-            allow_unused=True)
+        with profiling.span("train.backward"):
+            grads = torch.autograd.grad(
+                loss, [params[k] for k in names]
+                + [cparams[k] for k in cnames] + dparams + [sink],
+                allow_unused=True)
+        with profiling.span("train.update"):
+            finite = self._update(grads, names, cnames, dparams, meta,
+                                  pallas)
+        return {"finite": finite, "loss": loss, "ldict": ldict,
+                "rgb": outputs["rgb"].detach(), "image": image,
+                "spilled": outputs["spilled"], "alive": alive}
+
+    def _update(self, grads, names, cnames, dparams, meta,
+                pallas: bool) -> torch.Tensor:
+        """The guard, Adam and the densification statistics of a step's
+        gradients; returns the finite flag the guard decided on."""
+        params, cparams = self.params, self.camera_params
         sink_grad = grads[-1]
         nparams = len(names) + len(cnames)
+        with profiling.span("train.guard"):
+            # Dead rows must not move: zero their gradients exactly.
+            amask = self.alive.to(torch.float32)
+            pgrads = {}
+            for k, g in zip(names, grads[:len(names)]):
+                g = torch.zeros_like(params[k]) if g is None else g
+                pgrads[k] = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
+            for k, g in zip(cnames, grads[len(names):nparams]):
+                pgrads[k] = torch.zeros_like(cparams[k]) if g is None else g
+            dgrads = [torch.zeros_like(p) if g is None else g
+                      for p, g in zip(dparams, grads[nparams:-1])]
 
-        # Dead rows must not move: zero their gradients exactly.
-        amask = alive.to(torch.float32)
-        pgrads = {}
-        for k, g in zip(names, grads[:len(names)]):
-            g = torch.zeros_like(params[k]) if g is None else g
-            pgrads[k] = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
-        for k, g in zip(cnames, grads[len(names):nparams]):
-            pgrads[k] = torch.zeros_like(cparams[k]) if g is None else g
-        dgrads = [torch.zeros_like(p) if g is None else g
-                  for p, g in zip(dparams, grads[nparams:-1])]
+            # Non-finite guard: one degenerate splat's inf/NaN gradient
+            # would poison every Adam moment, so such a step is skipped
+            # (parameters, decoder, optimizer and statistics keep their
+            # values) and counted.  Taking the decision costs one host
+            # read of this flag per step.
+            finite = torch.stack([
+                torch.isfinite(g).all()
+                for g in [*pgrads.values(), *dgrads, sink_grad]]).all()
+            with profiling.span("sync.finite"):
+                ok = bool(finite)
+        if ok:
+            with profiling.span("train.adam"):
+                for k, g in pgrads.items():
+                    (params[k] if k in params else cparams[k]).grad = g
+                for p, g in zip(dparams, dgrads):
+                    p.grad = g
+                self.optimizer.step()
+                self.scheduler.step()
+                self.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.strategy"):
+                update = strategy.update_state_from_isect if pallas \
+                    else strategy.update_state
+                self.strat_state = update(self.strat_state, meta, sink_grad)
+        return finite
 
-        # Non-finite guard: one degenerate splat's inf/NaN gradient would
-        # poison every Adam moment, so such a step is skipped (parameters,
-        # decoder, optimizer and statistics keep their values) and counted.
-        # Taking the decision costs one host read of this flag per step.
-        finite = torch.stack([
-            torch.isfinite(g).all()
-            for g in [*pgrads.values(), *dgrads, sink_grad]]).all()
-        if bool(finite):
-            for k, g in pgrads.items():
-                (params[k] if k in params else cparams[k]).grad = g
-            for p, g in zip(dparams, dgrads):
-                p.grad = g
-            self.optimizer.step()
-            self.scheduler.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            update = strategy.update_state_from_isect if pallas \
-                else strategy.update_state
-            self.strat_state = update(self.strat_state, meta, sink_grad)
-        rgb = outputs["rgb"].detach()
+    @staticmethod
+    def _metric_tensors(res: Dict) -> Dict[str, torch.Tensor]:
+        """The step's metrics as 0-d tensors, from :meth:`_train_step`'s
+        result."""
+        finite = res["finite"]
         return {
             "nonfinite_grad": (~finite).to(torch.float32),
-            "loss": loss.detach(),
-            "psnr": losses.psnr(rgb, image),
-            "spilled": outputs["spilled"].to(torch.float32),
-            "num_gaussians": num_alive(alive).to(torch.float32),
-            **{k: v.detach() for k, v in ldict.items()},
+            "loss": res["loss"].detach(),
+            "psnr": losses.psnr(res["rgb"], res["image"]),
+            "spilled": res["spilled"].to(torch.float32),
+            "num_gaussians": num_alive(res["alive"]).to(torch.float32),
+            **{k: v.detach() for k, v in res["ldict"].items()},
         }
 
     # --------------------------------------------------------------- host
@@ -333,6 +373,10 @@ class Trainer:
             cfg.num_downscales - s // max(cfg.resolution_schedule, 1), 0)
 
     def train_one_step(self) -> Dict[str, float]:
+        with profiling.span("train.step", step=self.step):
+            return self._one_step()
+
+    def _one_step(self) -> Dict[str, float]:
         cfg = self.config
         scfg = cfg.strategy
         # Host-side, step-keyed camera draw, as the JAX trainer draws it.
@@ -350,44 +394,63 @@ class Trainer:
             if features_gt is not None:
                 features_gt = {k: v.to(self.device, non_blocking=True)
                                for k, v in features_gt.items()}
-        metrics = self._train_step(self.cameras[idx].downscaled(d), image,
-                                   features_gt, reg_active, d, idx)
+        res = self._train_step(self.cameras[idx].downscaled(d), image,
+                               features_gt, reg_active, d, idx)
         self.step += 1
 
         refined = {}
-        if scfg.is_refine_step(self.step) and self.step < cfg.max_iterations:
-            densify = scfg.densify_active(self.step, len(self.cameras))
-            cull_only = (not scfg.splits_allowed(self.step)
-                         and scfg.continue_cull_post_densification)
-            if densify or cull_only:
-                self._maybe_grow_capacity()
-                res = strategy.refine(
-                    self.params, self.alive, self.strat_state, scfg,
-                    generator=self._generator(2),
-                    scene_scale=cfg.scene_scale, allow_split=densify,
-                    allow_dup=densify,
-                    scale_cull=scfg.scale_cull_active(self.step),
-                    screen_size_cull=scfg.screen_size_active(self.step))
-                self._assign(res.params)
-                self.alive = res.alive
-                strategy.zero_opt_rows(self.optimizer, res.written)
-                self.strat_state = res.state
-                refined = {"refine_dup": res.n_dup, "refine_split":
-                           res.n_split, "refine_cull": res.n_cull,
-                           "refine_dropped": res.dropped}
-        if scfg.is_reset_step(self.step):
+        refine = (scfg.is_refine_step(self.step)
+                  and self.step < cfg.max_iterations)
+        densify = refine and scfg.densify_active(self.step, len(self.cameras))
+        cull_only = refine and (not scfg.splits_allowed(self.step)
+                                and scfg.continue_cull_post_densification)
+        reset = scfg.is_reset_step(self.step)
+        if densify or cull_only or reset:
+            with profiling.span("train.refine"):
+                refined = self._refine(densify, cull_only, reset)
+
+        with profiling.span("train.metrics"):
+            metrics = self._metric_tensors(res)
+            # One device -> host transfer for the whole metrics dict.
+            keys = list(metrics)
+            stacked = torch.stack([metrics[k].reshape(()) for k in keys])
+            with profiling.span("sync.metrics"):
+                values = stacked.tolist()
+                refined = {k: int(v) for k, v in refined.items()}
+            out = dict(zip(keys, values))
+            out["num_gaussians"] = int(out["num_gaussians"])
+            out.update(refined)
+        self.history.append(out)
+        return out
+
+    def _refine(self, densify: bool, cull_only: bool,
+                reset: bool) -> Dict[str, torch.Tensor]:
+        """The refine (with the capacity check ahead of it) and the opacity
+        reset of the step just taken; returns the refine's counts."""
+        cfg = self.config
+        scfg = cfg.strategy
+        refined = {}
+        if densify or cull_only:
+            self._maybe_grow_capacity()
+            res = strategy.refine(
+                self.params, self.alive, self.strat_state, scfg,
+                generator=self._generator(2),
+                scene_scale=cfg.scene_scale, allow_split=densify,
+                allow_dup=densify,
+                scale_cull=scfg.scale_cull_active(self.step),
+                screen_size_cull=scfg.screen_size_active(self.step))
+            self._assign(res.params)
+            self.alive = res.alive
+            strategy.zero_opt_rows(self.optimizer, res.written)
+            self.strat_state = res.state
+            refined = {"refine_dup": res.n_dup, "refine_split": res.n_split,
+                       "refine_cull": res.n_cull,
+                       "refine_dropped": res.dropped}
+        if reset:
             self._assign(strategy.reset_opacity(self.params, scfg))
             # Zero the opacity moments, else momentum undoes the clamp.
             optim.zero_group_moments(self.optimizer, "opacities")
-
-        # One device -> host transfer for the whole metrics dict.
-        keys = list(metrics)
-        values = torch.stack([metrics[k].reshape(()) for k in keys]).tolist()
-        out = dict(zip(keys, values))
-        out["num_gaussians"] = int(out["num_gaussians"])
-        out.update({k: int(v) for k, v in refined.items()})
-        self.history.append(out)
-        return out
+        return refined
 
     @torch.no_grad()
     def _assign(self, new_params: GaussianParams) -> None:
@@ -398,7 +461,8 @@ class Trainer:
 
     def _maybe_grow_capacity(self) -> None:
         c = self.alive.shape[0]
-        n = int(num_alive(self.alive))
+        with profiling.span("sync.alive"):
+            n = int(num_alive(self.alive))
         if n * self.config.capacity_headroom <= c:
             return
         new_c = 2 * c

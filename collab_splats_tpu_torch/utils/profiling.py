@@ -3,29 +3,219 @@
 Counterpart of the JAX package's ``utils/profiling.py``:
 
 * :func:`trace`: a ``torch.profiler`` context that writes a Chrome trace
-  (``chrome://tracing``, Perfetto) of everything run inside it;
+  (``chrome://tracing``, Perfetto) of everything run inside it, and the
+  totals of the program's spans and counters beside it;
+* :func:`span`, :func:`count`, :func:`totals`, :func:`reset` and
+  :func:`enabled`: the program's spans and counters, which record while a
+  ``torch.profiler`` session records and cost one flag read otherwise;
 * :func:`timed`: steady-state seconds per call, ``(t(r2) - t(r1)) / (r2 -
   r1)`` over two repetition counts, which cancels the fixed cost of a
   measurement (launch queue, synchronisation): CUDA events on the card,
-  the host clock on the CPU;
-* :func:`device_breakdown` and :func:`say_breakdown`: the card time of a
-  call by ATen op, and the card's idle share of the host time.
+  the host clock on the CPU.
+
+A span names a stretch of the program (``train.step``, ``render.project``,
+``sync.metrics``, ...).  While a profiler session records, a span enters
+``torch.profiler.record_function`` under its name, so it sits in the
+profiler's trace on the device trace's clock, and it keeps its host time,
+its self host time (less its child spans'), and on the card the time
+between two CUDA events it records on the current stream: its stretch of
+the device timeline, idle time inside it included.  Every ``sync.*`` span
+wraps one blocking device-to-host read and adds 1 to the counter
+``host_syncs``.  A counter sums host numbers or 0-d device tensors; a
+device value stays on the device until :func:`totals` reads it.  Nothing
+here synchronises the device while it records: a span's events are read
+once a ``sync.*`` span's read has drained the stream, or at
+:func:`totals`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Callable, Iterator, List, Tuple
+from collections import defaultdict
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+_autograd_profiler = torch.autograd.profiler
+# Folding waits for this many open event pairs before it reads the
+# finished ones without a sync span's help (a render loop has none).
+_PENDING_FOLD = 1024
+
+
+def enabled() -> bool:
+    """True while a ``torch.profiler`` session records: spans and counters
+    record exactly then."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Log:
+    """What the spans and counters recorded since the last :meth:`reset`."""
+
+    def __init__(self):
+        self.local = threading.local()   # each thread's stack of open spans
+        self.pool: List[torch.cuda.Event] = []
+        self.reset()
+
+    def reset(self) -> None:
+        self.spans: Dict[str, dict] = {}
+        self.pending: List[Tuple[str, object, object]] = []
+        self.host_counts: Dict[str, float] = defaultdict(float)
+        self.device_counts: Dict[str, torch.Tensor] = {}
+
+    def stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def event(self):
+        """A timing CUDA event recorded on the current stream, or None
+        where the process uses no card."""
+        if not torch.cuda.is_initialized():
+            return None
+        ev = self.pool.pop() if self.pool else torch.cuda.Event(
+            enable_timing=True)
+        ev.record()
+        return ev
+
+    def close(self, name: str, parent: Optional[str], host_ns: int,
+              self_ns: int, ev0, ev1) -> None:
+        s = self.spans.get(name)
+        if s is None:
+            s = self.spans[name] = {"count": 0, "host_s": 0.0,
+                                    "self_host_s": 0.0, "card_s": None,
+                                    "parents": []}
+        s["count"] += 1
+        s["host_s"] += host_ns / 1e9
+        s["self_host_s"] += self_ns / 1e9
+        if parent not in s["parents"]:
+            s["parents"].append(parent)
+        if ev0 is not None and ev1 is not None:
+            self.pending.append((name, ev0, ev1))
+            if len(self.pending) >= _PENDING_FOLD:
+                self.fold()
+
+    def fold(self, wait: bool = False) -> None:
+        """Add the card time of every span whose end event has passed
+        (all of them, waiting, with ``wait``) and recycle its events."""
+        keep = []
+        for name, ev0, ev1 in self.pending:
+            if wait:
+                ev1.synchronize()
+            elif not ev1.query():
+                keep.append((name, ev0, ev1))
+                continue
+            s = self.spans[name]
+            s["card_s"] = (s["card_s"] or 0.0) + ev0.elapsed_time(ev1) / 1e3
+            self.pool += (ev0, ev1)
+        self.pending = keep
+
+    def add(self, name: str, value) -> None:
+        if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+            acc = self.device_counts.get(name)
+            if acc is None:
+                acc = self.device_counts[name] = torch.zeros(
+                    (), dtype=torch.float64, device=value.device)
+            acc.add_(value.detach().reshape(()))
+        else:
+            self.host_counts[name] += float(value)
+
+    def totals(self) -> dict:
+        self.fold(wait=True)
+        counters = dict(self.host_counts)
+        for name, acc in self.device_counts.items():
+            counters[name] = counters.get(name, 0.0) + acc.item()
+        return {"spans": {k: dict(v, parents=list(v["parents"]))
+                          for k, v in self.spans.items()},
+                "counters": counters}
+
+
+_LOG = _Log()
+
+
+class _Span:
+    """An open span while recording (see :func:`span`)."""
+
+    __slots__ = ("name", "args", "parent", "child_ns", "rf", "ev0", "t0")
+
+    def __init__(self, name: str, args: Optional[str]):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        # The range opens first and closes last, so that the bookkeeping
+        # sits inside it on the profiler's timeline.
+        self.rf = _autograd_profiler.record_function(self.name, self.args)
+        self.rf.__enter__()
+        st = _LOG.stack()
+        self.parent = st[-1] if st else None
+        st.append(self)
+        self.child_ns = 0
+        if self.name.startswith("sync."):
+            _LOG.add("host_syncs", 1)
+        self.ev0 = _LOG.event()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter_ns() - self.t0
+        ev1 = _LOG.event()
+        _LOG.stack().pop()
+        parent = self.parent
+        if parent is not None:
+            parent.child_ns += dur
+        _LOG.close(self.name, None if parent is None else parent.name, dur,
+                   dur - self.child_ns, self.ev0, ev1)
+        if self.name.startswith("sync."):
+            # The read has drained the stream up to here.
+            _LOG.fold()
+        self.rf.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **args):
+    """A context manager that records the block as the span ``name``
+    while a profiler session records (``args``, such as the trainer's
+    step, go with it into the trace); a shared no-op otherwise."""
+    if not enabled():
+        return _OFF
+    return _Span(name, ",".join(f"{k}={v}" for k, v in args.items())
+                 if args else None)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a number, a 0-d tensor, or a callable that returns
+    one, called only while recording) to the counter ``name`` while a
+    profiler session records; nothing otherwise."""
+    if not enabled():
+        return
+    _LOG.add(name, value() if callable(value) else value)
+
+
+def totals() -> dict:
+    """What was recorded since the last :func:`reset`: ``{"spans": {name:
+    {"count", "host_s", "self_host_s", "card_s" (None off the card),
+    "parents"}}, "counters": {name: sum}}``.  Waits for the device work
+    that the recorded spans and counters cover."""
+    return _LOG.totals()
+
+
+def reset() -> None:
+    """Forget every span and counter recorded so far."""
+    _LOG.reset()
 
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[str]:
     """Profile the block (host, and the card when there is one) and write
-    ``logdir/trace.json`` as a Chrome trace.  Yields the file's path."""
+    ``logdir/trace.json`` as a Chrome trace and ``logdir/totals.json``, the
+    block's :func:`totals`.  Yields the trace's path."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -33,9 +223,12 @@ def trace(logdir: str) -> Iterator[str]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    reset()
     with profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(path)
+    with open(os.path.join(logdir, "totals.json"), "w") as f:
+        json.dump(totals(), f, indent=1)
 
 
 def _run_seconds(fn: Callable, args, reps: int, cuda: bool) -> float:
@@ -68,53 +261,3 @@ def timed(fn: Callable, *args, reps: Tuple[int, int] = (2, 10)) -> float:
     t_a = _run_seconds(fn, args, r1, cuda)
     t_b = _run_seconds(fn, args, r2, cuda)
     return max(t_b - t_a, 0.0) / (r2 - r1)
-
-
-def device_breakdown(fn: Callable, reps: int = 3, top: int = 8
-                     ) -> Tuple[float, float, List[Tuple[str, float, float]]]:
-    """A ``torch.profiler`` trace of ``reps`` calls of ``fn`` after one
-    untraced call.  Returns (host ms per call, card ms per call: the sum of
-    the kernels' durations, [(op and input shapes, self card ms per call,
-    calls per call)] of the ``top`` ATen ops by the card time of the
-    kernels they launch themselves).  On the CPU the card time is 0."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def card_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if t is None else t
-
-    cuda = torch.cuda.is_available()
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    activities = [ProfilerActivity.CPU]
-    if cuda:
-        activities.append(ProfilerActivity.CUDA)
-    fn()
-    sync()
-    with profile(activities=activities, record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync()
-        host = (time.perf_counter() - t0) * 1e3 / reps
-    events = prof.key_averages(group_by_input_shape=True)
-    card = sum(card_us(e) for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
-    ops = sorted(((f"{e.key}{list(e.input_shapes) if e.input_shapes else ''}",
-                   card_us(e) / 1e3 / reps, e.count / reps)
-                  for e in events if e.key.startswith("aten::")
-                  and card_us(e) > 0), key=lambda r: -r[1])
-    return host, card, ops[:top]
-
-
-def say_breakdown(what: str, breakdown, say: Callable[[str], None] = print
-                  ) -> None:
-    """One line of a :func:`device_breakdown`: host and card ms per call,
-    the card's idle share of the host time, and the top ops."""
-    host, card, ops = breakdown
-    if card == 0:
-        say(f"{what}: torch.profiler saw no card time (host {host:.4f} ms)")
-        return
-    say(f"{what} (torch.profiler, ms per call): host {host:.4f}, card "
-        f"{card:.4f} (idle {1 - card / host:.1%}); ops by their kernels' "
-        f"card time: " + "; ".join(f"{k} {t:.4f} x{n:g}" for k, t, n in ops))

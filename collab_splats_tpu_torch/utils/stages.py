@@ -2,7 +2,9 @@
 
 A :class:`StageTimer` over a dict appends each stage's seconds under its
 name, synchronising the device at both ends so the time is the stage's
-own; over ``None`` it times nothing and synchronises nothing.
+own; over ``None`` it times nothing and synchronises nothing.  Either way
+a stage is the span ``mesh.<name>`` (``utils/profiling.py``) while a
+profiler session records.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+from . import profiling
 
 
 class StageTimer:
@@ -27,11 +31,11 @@ class StageTimer:
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        if self.times is None:
+        if self.times is not None:
+            self._sync()
+            t0 = time.perf_counter()
+        with profiling.span(f"mesh.{name}"):
             yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+        if self.times is not None:
+            self._sync()
+            self.times.setdefault(name, []).append(time.perf_counter() - t0)

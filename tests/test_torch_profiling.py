@@ -35,18 +35,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("aten::" in e.get("name", "") for e in events)
 
 
-def test_device_breakdown_runs():
-    x = torch.randn(32, 32)
-    host, card, ops = profiling.device_breakdown(lambda: work(x), reps=2)
-    assert host > 0 and card == 0 and ops == []
-    lines = []
-    profiling.say_breakdown("cpu work", (host, card, ops), lines.append)
-    assert "no card time" in lines[0]
-    profiling.say_breakdown("fake", (2.0, 1.5, [("aten::mm[[2, 2]]", 1.5,
-                                                1.0)]), lines.append)
-    assert "idle 25.0%" in lines[1] and "aten::mm" in lines[1]
-
-
 def test_public_api_matches_jax():
     assert collab_splats_tpu_torch.__all__ == collab_splats_tpu.__all__
     for name in collab_splats_tpu_torch.__all__:
