@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-Builds the port's six CUDA kernels from ``collab_splats_tpu_torch/csrc``
-and holds each against its plain PyTorch version on the card (the per-tile
-pair, which reads each slot's row through the aligned ids, at C = 3 and 16
-colour channels and stop_threshold 0 and 1e-4 with a nonzero per-slot sink;
-the four compositing kernels also on the seeded edge cases of
+Builds the port's seven CUDA kernels from ``collab_splats_tpu_torch/csrc``
+and holds each against its plain PyTorch version on the card (the fused
+projection, forward and backward, on the bench scene in 2,524,288 rows; the
+per-tile pair, which reads each slot's row through the aligned ids, at C = 3
+and 16 colour channels and stop_threshold 0 and 1e-4 with a nonzero
+per-slot sink; the four compositing kernels also on the seeded edge cases of
 ``data/compositing_cases.py``; the decode also on the skewed plans of
 ``data/decode_plans.py``; the sorted segment sum also on a skewed id
 stream: one id owning 2^17 rows, a run of 120,000 ids owning none), and the
@@ -141,7 +142,7 @@ from scipy.spatial import cKDTree
 
 from collab_splats_tpu_torch.core import compositing
 from collab_splats_tpu_torch.core.options import RenderOptions
-from collab_splats_tpu_torch.core.projection import (covariance3d,
+from collab_splats_tpu_torch.core.projection import (project_backward,
                                                      project_gaussians)
 from collab_splats_tpu_torch.data import (compositing_cases, decode_plans,
                                           synthetic)
@@ -158,7 +159,8 @@ from collab_splats_tpu_torch.meshing import transfer as mesh_transfer
 from collab_splats_tpu_torch.models import gaussians, rade_features, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
-                                              composite, segsum_kernel)
+                                              composite, projection,
+                                              segsum_kernel)
 from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1131,6 +1133,156 @@ def projector(params, alive, cam, opts):
     return project, opac
 
 
+# The fused projection (csrc/projection.cu) at the benchmark's table: the
+# bench scene's 1M Gaussians in 2,524,288 rows, the capacity after two
+# growths, the rest dead padding rows.
+PROJECT_ROWS = 2_524_288
+PROJECT_FIELDS = ("mean2d", "depth", "conic", "plane", "normal",
+                  "compensation")
+# Bytes a row (float32 reads and writes, the valid byte) and float32
+# operations a row, about: the forward reads means, quats, scales and the
+# opacity and writes the nine Projection fields; the backward reads the
+# inputs and six cotangents and writes three gradients.
+PROJECT_FWD_BYTES, PROJECT_FWD_OPS = 4 * (11 + 15) + 1, 300
+PROJECT_BWD_BYTES, PROJECT_BWD_OPS = 4 * (10 + 12 + 10), 600
+
+
+def check_projection(scene):
+    """The fused projection kernels against ``project_gaussians`` and
+    ``project_backward`` on the bench scene in PROJECT_ROWS rows: the float
+    outputs within 1e-5 of each field's max |ref|, radius, radius_xy and
+    valid different in at most 1 row in 100,000 and then by at most one
+    pixel, the gradients within 1e-4 of each one's max |ref| on seeded
+    cotangents, a repeat bit-identical; the camera's gradient (pose
+    optimisation's) within 1e-4 of the max |ref| of ``project_backward``
+    in float64, a repeat bit-identical, and the rows' gradients beside it
+    within the same 1e-4 (the camera's instantiation of the kernel
+    contracts its products into other FMAs, so they differ by rounding);
+    then each kernel's time beside its bound and the plain chain's.
+    Returns the kernel entries' fields."""
+    params, alive, cams, cfg = scene
+    table = gaussians.pad_to_capacity(params, PROJECT_ROWS)
+    rows_alive = torch.zeros(PROJECT_ROWS, dtype=torch.bool,
+                             device=alive.device)
+    rows_alive[:alive.shape[0]] = alive
+    opts, cam = cfg.render, cams[0]
+    means, quats = table["means"].detach(), table["quats"].detach()
+    scales = gaussians.activated_scales(table).detach()
+    opac = gaussians.activated_opacity(table, rows_alive).detach()
+    cam_args = (cam.viewmat(), cam.K)
+    consts = (opts.eps2d, opts.near_plane, opts.far_plane)
+    fwd_args = (means, quats, scales, *cam_args, cam.width, cam.height,
+                *consts, opts.radius_clip, opac)
+    with uncounted():
+        got = projection.project_fwd(*fwd_args)
+        again = projection.project_fwd(*fwd_args)
+    ref = project_gaussians(*fwd_args[:7], eps2d=opts.eps2d,
+                            near_plane=opts.near_plane,
+                            far_plane=opts.far_plane,
+                            radius_clip=opts.radius_clip, opacities=opac)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("project_fwd: a repeat differs")
+    differ = (got.valid != ref.valid) | (got.radius != ref.radius) \
+        | (got.radius_xy != ref.radius_xy).any(-1)
+    n_differ = int(differ.sum())
+    if n_differ > PROJECT_ROWS // 100_000:
+        raise AssertionError(f"project_fwd: {n_differ} rows take another "
+                             "radius or valid than the plain version")
+    both = got.valid == ref.valid
+    pixel = max(float((got.radius - ref.radius)[both].abs().max()),
+                float((got.radius_xy - ref.radius_xy)[both].abs().max()))
+    if pixel > 1.0:
+        raise AssertionError(f"project_fwd: radius off by {pixel} pixels")
+    same = ~differ
+    errs = {name: rel_err(getattr(got, name)[same],
+                          getattr(ref, name)[same].cpu())
+            for name in PROJECT_FIELDS}
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"project_fwd: errors {errs} over 1e-5 of the "
+                             "max |ref|")
+    gen = torch.Generator(device=means.device).manual_seed(11)
+    cots = [torch.randn(getattr(ref, name).shape, generator=gen,
+                        device=means.device) for name in PROJECT_FIELDS]
+    bwd_args = (means, quats, scales, *cam_args, *consts, *cots)
+    with uncounted():
+        g_got = projection.project_bwd(*bwd_args)
+        g_again = projection.project_bwd(*bwd_args)
+    g_ref = project_backward(*bwd_args)
+    if not all(torch.equal(a, b) for a, b in zip(g_got[:3], g_again[:3])):
+        raise AssertionError("project_bwd: a repeat differs")
+    g_errs = {name: rel_err(g[same], r[same].cpu()) for name, g, r in
+              zip(("means", "quats", "scales"), g_got, g_ref)}
+    if max(g_errs.values()) > 1e-4:
+        raise AssertionError(f"project_bwd: errors {g_errs} over 1e-4 of "
+                             "the max |ref|")
+    # The camera's gradient, a sum over every row, against float64.
+    with uncounted():
+        c_got = projection.project_bwd(*bwd_args, camera=True)
+        c_again = projection.project_bwd(*bwd_args, camera=True)
+    if not all(torch.equal(a, b) for a, b in zip(c_got, c_again)):
+        raise AssertionError("project_bwd (camera): a repeat differs")
+    c_ref = project_backward(*(x.double() for x in bwd_args[:5]), *consts,
+                             *(c.double() for c in cots), camera=True)
+    del c_again
+    c_errs = {name: rel_err(g[same], r[same].cpu()) for name, g, r in
+              zip(("means", "quats", "scales"), c_got, g_ref)}
+    for name, g, r in zip(("viewmat", "K"), c_got[3:], c_ref[3:]):
+        c_errs[name] = rel_err(g, r.float().cpu())
+    if max(c_errs.values()) > 1e-4:
+        raise AssertionError(f"project_bwd (camera): errors {c_errs} over "
+                             "1e-4 of the max |ref|")
+    g_errs.update({f"{k} (camera)": v for k, v in c_errs.items()})
+    del c_ref
+
+    def plain_step():
+        leaves = [x.clone().requires_grad_(True)
+                  for x in (means, quats, scales)]
+        out = project_gaussians(*leaves, *fwd_args[3:7], eps2d=opts.eps2d,
+                                near_plane=opts.near_plane,
+                                far_plane=opts.far_plane,
+                                radius_clip=opts.radius_clip,
+                                opacities=opac)
+        torch.autograd.grad([getattr(out, n) for n in PROJECT_FIELDS],
+                            leaves, cots)
+
+    with uncounted():
+        t = {"project_fwd_ms": median_ms(
+                lambda: projection.project_fwd(*fwd_args)),
+             "project_bwd_ms": median_ms(
+                lambda: projection.project_bwd(*bwd_args))}
+        camera_ms = median_ms(
+            lambda: projection.project_bwd(*bwd_args, camera=True))
+    t["project_fwd_plain_ms"] = median_ms(
+        lambda: project_gaussians(*fwd_args[:7], eps2d=opts.eps2d,
+                                  opacities=opac), reps=PLAIN_REPS)
+    t["project_bwd_plain_ms"] = median_ms(
+        lambda: project_backward(*bwd_args), reps=PLAIN_REPS)
+    chain_ms = median_ms(plain_step, reps=PLAIN_REPS)
+    t["project_fwd_bound"] = bound(PROJECT_FWD_BYTES * PROJECT_ROWS,
+                                   PROJECT_FWD_OPS * PROJECT_ROWS)
+    t["project_bwd_bound"] = bound(PROJECT_BWD_BYTES * PROJECT_ROWS,
+                                   PROJECT_BWD_OPS * PROJECT_ROWS)
+    say(f"parity projection ({PROJECT_ROWS} rows, {int(alive.sum())} "
+        f"alive): {n_differ} rows take another radius, radius_xy or valid "
+        f"(at most {pixel:g} pixel apart where valid agrees); max abs err "
+        f"over max |ref| " + ", ".join(f"{k} {v:.3g}"
+                                       for k, v in errs.items())
+        + "; gradients " + ", ".join(f"{k} {v:.3g}"
+                                     for k, v in g_errs.items())
+        + "; repeats bit-identical")
+    say(f"projection times (CUDA events, ms): forward kernel "
+        f"{t['project_fwd_ms']:.4f} (bound {t['project_fwd_bound'][0]:.4f} "
+        f"by {t['project_fwd_bound'][1]}), backward kernel "
+        f"{t['project_bwd_ms']:.4f} (bound {t['project_bwd_bound'][0]:.4f} "
+        f"by {t['project_bwd_bound'][1]}; with the camera's gradient "
+        f"{camera_ms:.4f}); plain forward "
+        f"{t['project_fwd_plain_ms']:.4f}, plain backward "
+        f"{t['project_bwd_plain_ms']:.4f}, the autograd chain forward and "
+        f"backward {chain_ms:.4f}")
+    return {"fwd_err": max(errs.values()), "bwd_err": max(g_errs.values()),
+            **t}
+
+
 def layer_times(params, alive, cam, cfg, step=0):
     """Median ms of each layer of one render at ``step``, called in the
     order ``ops/rasterize.py::render_tiled`` calls them."""
@@ -1543,7 +1695,7 @@ def progressive_phase(data, dev):
                          resolution_schedule=PROG_SCHEDULE)
     full = tr.cameras[0]
     per_step = {"decode": 1, "composite": 1, "composite_bwd": 1,
-                "segment_sum": 2}
+                "segment_sum": 2, "project": 1, "project_bwd": 1}
     total = dict.fromkeys(counts(), 0)
     rows, factors = [], []
     for _ in range(PROG_STEPS):
@@ -1591,13 +1743,16 @@ def counts():
             "composite_bwd": batched.bwd_launches,
             "segment_sum": segsum_kernel.launches,
             "composite_tiles": composite.launches,
-            "composite_tiles_bwd": composite.bwd_launches}
+            "composite_tiles_bwd": composite.bwd_launches,
+            "project": projection.launches,
+            "project_bwd": projection.bwd_launches}
 
 
 def reset_counts():
     binning_kernel.launches = segsum_kernel.launches = 0
     batched.launches = batched.bwd_launches = 0
     composite.launches = composite.bwd_launches = 0
+    projection.launches = projection.bwd_launches = 0
 
 
 @contextlib.contextmanager
@@ -1614,6 +1769,8 @@ def uncounted():
         segsum_kernel.launches = saved["segment_sum"]
         composite.launches = saved["composite_tiles"]
         composite.bwd_launches = saved["composite_tiles_bwd"]
+        projection.launches = saved["project"]
+        projection.bwd_launches = saved["project_bwd"]
 
 
 def train_main_path(tr, steps, refine_at):
@@ -1653,8 +1810,10 @@ def train_main_path(tr, steps, refine_at):
 
 def check_training(hist, launches, refine_at, reg_from, per_step):
     """Finite losses, the depth-normal phase from ``reg_from``, the launch
-    counts ``per_step`` times the steps, and a refine pass that duplicated,
-    split and culled."""
+    counts ``per_step`` (and kernel 7's projection, forward and backward,
+    once each) times the steps, and a refine pass that duplicated, split
+    and culled."""
+    per_step = dict(per_step, project=1, project_bwd=1)
     steps = len(hist)
     for i, h in enumerate(hist):
         if not math.isfinite(h["loss"]) or h["nonfinite_grad"] != 0:
@@ -2259,7 +2418,8 @@ def mesh_path(dev, ckpt, cams, render_opts):
     tsdf_launches = counts()
     peak = torch.cuda.max_memory_allocated()
     n = len(cams)
-    want = {k: {"decode": n, "composite": n}.get(k, 0) for k in tsdf_launches}
+    want = {k: {"decode": n, "composite": n, "project": n}.get(k, 0)
+            for k in tsdf_launches}
     if tsdf_launches != want:
         raise AssertionError(f"TSDF export: launches {tsdf_launches}, "
                              f"expected {want}")
@@ -2778,7 +2938,8 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
     want = {k: 0 for k in launches}
     want.update(decode=n_steps + 1 + len(gcams),
                 composite=n_steps + 1 + len(gcams), composite_bwd=n_steps,
-                segment_sum=2 * n_steps)
+                segment_sum=2 * n_steps, project=n_steps + 1 + len(gcams),
+                project_bwd=n_steps)
     if launches != want:
         raise AssertionError(f"path 8: launches {launches}, expected {want}")
 
@@ -3150,7 +3311,8 @@ def options_path(dev, weights_dir):
         want.update(decode=OPTIONS_STEPS + evals,
                     composite=OPTIONS_STEPS + evals,
                     composite_bwd=OPTIONS_STEPS,
-                    segment_sum=2 * OPTIONS_STEPS)
+                    segment_sum=2 * OPTIONS_STEPS,
+                    project=OPTIONS_STEPS + evals, project_bwd=OPTIONS_STEPS)
         if launches != want:
             raise AssertionError(f"path 9: launches {launches}, expected "
                                  f"{want}")
@@ -3240,20 +3402,19 @@ def options_path(dev, weights_dir):
 
     # Each layer of the options, alone on the card.
     cam, delta = cams[0], pose[0]
-    means = p["means"].detach()
-    cov_w = covariance3d(p["quats"].detach(),
-                         torch.exp(p["scales"].detach()))
-    ct1 = torch.randn(means.shape, generator=torch.Generator(
+    rows = (p["means"].detach(), p["quats"].detach(),
+            gaussians.activated_scales(p).detach())
+    n_rows = rows[0].shape[0]
+    ct1 = torch.randn((n_rows, 2), generator=torch.Generator(
         device=dev).manual_seed(5), device=dev)
-    ct2 = torch.randn(cov_w.shape, generator=torch.Generator(
+    ct2 = torch.randn((n_rows, 3), generator=torch.Generator(
         device=dev).manual_seed(6), device=dev)
 
     def pose_term():
         d = delta.clone().requires_grad_(True)
-        vm = camera_opt.apply_pose_adjustment(cam, d).viewmat()
-        r, t = vm[:3, :3], vm[:3, 3]
-        out = torch.sum((means @ r.T + t) * ct1) + torch.sum(
-            torch.einsum("ij,njk,lk->nil", r, cov_w, r) * ct2)
+        c = camera_opt.apply_pose_adjustment(cam, d)
+        pj = projection.project(*rows, c.viewmat(), c.K, c.width, c.height)
+        out = torch.sum(pj.mean2d * ct1) + torch.sum(pj.conic * ct2)
         return torch.autograd.grad(out, [d])
 
     rgb = images[0]
@@ -3271,8 +3432,9 @@ def options_path(dev, weights_dir):
 
     grid_trace = traced_totals(grid_fwd_bwd)
     layers = {
-        "pose term (exp_so3, c2w, viewmat, and the backward of the "
-        "projection's R_wc, t_wc over the capacity)": median_ms(pose_term),
+        "pose term (exp_so3, c2w, viewmat, and kernel 7 forward and "
+        "backward with the camera's gradient over the capacity)":
+            median_ms(pose_term),
         "bilateral slice + apply + TV, forward": median_ms(grid_fwd),
         "bilateral forward + backward": median_ms(grid_fwd_bwd),
         "streamed frame copy (pinned host to card, 1280x720x3 float32)":
@@ -3437,7 +3599,8 @@ def _pipeline_path(dev, root):
     n_steps = 2 * PIPE_STEPS
     want = {k: 0 for k in train_launches}
     want.update(decode=n_steps, composite=n_steps, composite_bwd=n_steps,
-                segment_sum=2 * n_steps)
+                segment_sum=2 * n_steps, project=n_steps,
+                project_bwd=n_steps)
     if train_launches != want:
         raise AssertionError(f"path 10 training: launches {train_launches},"
                              f" expected {want}")
@@ -3559,7 +3722,8 @@ def _pipeline_path(dev, root):
         raise AssertionError(f"path 10: cli returned {rc}/{rc_list}: "
                              f"{text[-400:]}")
     launches = counts()
-    for k in ("decode", "composite", "composite_bwd", "segment_sum"):
+    for k in ("decode", "composite", "composite_bwd", "segment_sum",
+              "project", "project_bwd"):
         if launches[k] == 0:
             raise AssertionError(f"path 10: {k} never launched")
     say(f"main path 10 (Splatter on a bench-scale dataset: 10 cameras at "
@@ -3587,7 +3751,7 @@ TILE_STEPS = 10
 SMALL_CAP_STEPS = 2      # tile-sharded steps at send_cap = shard / 8
 SHARDED_STEP0 = 3
 SHARDED_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
-                    "segment_sum": 2}
+                    "segment_sum": 2, "project": 2, "project_bwd": 1}
 # The routed step adds two segment sums: the slab gather's backward
 # (expand_rows) and the statistics routed back to their shard.
 TILE_PER_STEP = dict(SHARDED_PER_STEP, segment_sum=4)
@@ -3900,9 +4064,18 @@ def golden_path(dev):
         tiled = {"xla": rasterize.render_tiled(*args, cam, opts)[0],
                  "pallas": rasterize.render_tiled_pallas(*args, cam,
                                                          opts)[0]}
-        gold = render_golden(*args, None, cam, opts)
-        golden_ms = timings(lambda: render_golden(*args, None, cam, opts),
-                            host_clock=True, reps=3)
+        # The golden takes the tiled renders' own projection (kernel 7,
+        # which check_projection holds to project_gaussians): two
+        # projections that differ in float rounding flip the depth order
+        # of near-equal splats and the 1/255 cutoff at a few pixels, over
+        # the 2e-5 this path holds binning and compositing to.
+        with uncounted():
+            gold = render_golden(*args, None, cam, opts,
+                                 project_fn=projection.project)
+            golden_ms = timings(
+                lambda: render_golden(*args, None, cam, opts,
+                                      project_fn=projection.project),
+                host_clock=True, reps=3)
     errs = {}
     for backend, out in tiled.items():
         if int(out.spilled) != 0:
@@ -3981,7 +4154,9 @@ def golden_path(dev):
     want.update(decode=ANALYTIC_STEPS + renders_done + 2,
                 composite=ANALYTIC_STEPS + renders_done + 1,
                 composite_bwd=ANALYTIC_STEPS,
-                segment_sum=2 * ANALYTIC_STEPS, composite_tiles=1)
+                segment_sum=2 * ANALYTIC_STEPS, composite_tiles=1,
+                project=ANALYTIC_STEPS + renders_done + 2,
+                project_bwd=ANALYTIC_STEPS)
     if launches != want:
         raise AssertionError(f"path 12: launches {launches}, expected "
                              f"{want}")
@@ -4032,7 +4207,7 @@ SCALE_KILL_AT = 2400
 SCALE_MESH_AT = 3000
 SCALE_FEATURE_STEPS = 500
 SCALE_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
-                  "segment_sum": 2}
+                  "segment_sum": 2, "project": 1, "project_bwd": 1}
 
 
 def scale_launches(steps, renders, skipped=0):
@@ -4043,6 +4218,7 @@ def scale_launches(steps, renders, skipped=0):
     want["segment_sum"] -= skipped
     want["decode"] += renders
     want["composite"] += renders
+    want["project"] += renders
     return want
 
 
@@ -4304,6 +4480,7 @@ def main() -> int:
     edge_errs = check_edge_cases(dev)
     for name, sc in scenes.items():
         check_pallas_vs_xla(name, sc)
+    proj_rec = check_projection(scenes["bench"])
     seg_err = check_segsum(
         render(*scenes["bench"][:2], scenes["bench"][2][0],
                scenes["bench"][3])[1].bins, scenes["bench"][1].shape[0])
@@ -4323,8 +4500,9 @@ def main() -> int:
     pallas_scenes = {name: (p, a, cams, pallas_config(cfg))
                      for name, (p, a, cams, cfg) in scenes.items()}
     for backend, path_scenes, per_render in (
-            ("xla", scenes, {"decode": 1, "composite": 1}),
-            ("pallas", pallas_scenes, {"decode": 1, "composite_tiles": 1})):
+            ("xla", scenes, {"decode": 1, "composite": 1, "project": 1}),
+            ("pallas", pallas_scenes, {"decode": 1, "composite_tiles": 1,
+                                       "project": 1})):
         reset_counts()
         with captured(rasterize, "pack_intersections") as packs:
             outs = {name: [render(p, a, cam, cfg)[0] for cam in cams]
@@ -4746,6 +4924,18 @@ def main() -> int:
             "bound_ms": b[f"{key}_bound"][0],
             "bound_by": b[f"{key}_bound"][1],
             "library_ms": b[lib] if lib else None,
+        })
+    for key, err, count in (("project_fwd", "fwd_err", "project"),
+                            ("project_bwd", "bwd_err", "project_bwd")):
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "collab_splats_tpu_torch/csrc/projection.cu",
+            "replaces": None, "launches": launches[count],
+            "max_err_over_max_ref": proj_rec[err],
+            "ms": proj_rec[f"{key}_ms"],
+            "plain_ms": proj_rec[f"{key}_plain_ms"],
+            "bound_ms": proj_rec[f"{key}_bound"][0],
+            "bound_by": proj_rec[f"{key}_bound"][1], "library_ms": None,
         })
     say(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(f"card: {CARD}")

@@ -6,18 +6,21 @@ as the tiled renderer, so the two agree up to per-tile capacity truncation
 and float associativity).  Plain PyTorch with no kernel, differentiable,
 on the device of its inputs.  It is the oracle that the tiled renderers
 are held against (tests, ``chip_smoke.py``); it never runs in training.
+A caller may hand it another projection with the same arguments (the
+tiled renderer's own, to hold binning and compositing alone: tile
+membership and the cutoffs are decisions on the projection's floats).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from .cameras import Camera
 from .compositing import composite, splat_alpha
 from .options import RenderOptions
-from .projection import project_gaussians
+from .projection import Projection, project_gaussians
 
 # Elements of one [rows, W, N] block of the per-pixel evaluation.
 CHUNK_ELEMENTS = 1 << 22
@@ -43,16 +46,18 @@ def render_golden(
     normals_world: Optional[torch.Tensor],
     camera: Camera,
     opts: RenderOptions = RenderOptions(),
+    project_fn: Callable[..., Projection] = project_gaussians,
 ) -> RenderOutput:
     """Render one camera naively.
 
     ``means`` [N, 3], ``quats`` [N, 4] wxyz, ``scales`` [N, 3] linear,
     ``opacities`` [N] activated, ``colors`` [N, C] (SH evaluated);
     ``normals_world`` optionally replaces the RaDe plane normals with
-    world-space ones.  Returns a :class:`RenderOutput` with no background.
+    world-space ones; ``project_fn`` takes ``project_gaussians``'
+    arguments.  Returns a :class:`RenderOutput` with no background.
     """
     viewmat = camera.viewmat()
-    proj = project_gaussians(
+    proj = project_fn(
         means, quats, scales, viewmat, camera.K, camera.width, camera.height,
         eps2d=opts.eps2d, near_plane=opts.near_plane,
         far_plane=opts.far_plane, radius_clip=opts.radius_clip,

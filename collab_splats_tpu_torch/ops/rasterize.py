@@ -1,8 +1,9 @@
 """Tiled rasterizer: projection -> binning -> compositing -> maps.
 
-Counterpart of the JAX package's ``ops/rasterize.py``.  Projection and
-binning are dense tensor code shared by both compositors, which
-``RenderOptions.backend`` selects:
+Counterpart of the JAX package's ``ops/rasterize.py``.  Projection (the
+fused kernels of ``ops/cuda/projection.py``) and binning (dense tensor
+code) are shared by both compositors, which ``RenderOptions.backend``
+selects:
 
 * ``"xla"`` (:func:`render_tiled`, the JAX fused-compositor branch): one
   row gather of the packed per-gaussian matrix into [T, K] tile windows
@@ -30,10 +31,11 @@ import torch
 from ..core.cameras import Camera
 from ..core.golden import RenderOutput
 from ..core.options import RenderOptions
-from ..core.projection import Projection, project_gaussians
+from ..core.projection import Projection
 from ..utils import profiling
 from .cuda.batched import composite
 from .cuda.composite import CHUNK, composite_tiles
+from .cuda.projection import project
 from .segsum import expand_rows, spread_masked
 from .tiles import (TileBins, align_segments, bin_gaussians,
                     default_max_intersections, default_tile_capacity)
@@ -137,14 +139,15 @@ def _project(means, quats, scales, opacities, camera, opts, normals_world,
              alive_mask):
     """(projection, compositing opacity, camera-space normals) of a
     render, in the span ``render.project``, which counts the rows it runs
-    over (``render.rows``) and the alive ones (``render.alive``)."""
+    over (``render.rows``) and the alive ones (``render.alive``); the
+    projection counts those its kernel ran over (``render.fused_rows``)."""
     with profiling.span("render.project"):
         rows = means.shape[0]
         profiling.count("render.rows", rows)
         profiling.count("render.alive", rows if alive_mask is None
                         else alive_mask.sum)
         viewmat = camera.viewmat()
-        proj = project_gaussians(
+        proj = project(
             means, quats, scales, viewmat, camera.K, camera.width,
             camera.height, eps2d=opts.eps2d, near_plane=opts.near_plane,
             far_plane=opts.far_plane, radius_clip=opts.radius_clip,

@@ -42,8 +42,9 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.cameras import Camera
-from ..core.projection import Projection, project_gaussians
+from ..core.projection import Projection
 from ..models import rade_gs
+from ..ops.cuda.projection import project
 from ..ops.rasterize import (PG_CONIC, PG_DEPTH, PG_MEAN2D, PG_OPAC,
                              absgrad_sink_shape, pack_per_gauss,
                              render_from_projections)
@@ -114,8 +115,10 @@ class ShardedTrainStep:
                        height=self.height), images[d])
 
     def _project(self, camera, means, quats, scales, opac):
+        # The single-device render's projection (the fused kernels on the
+        # card), so a shard's rows come out with the same bits.
         opts = self.cfg.render
-        return project_gaussians(
+        return project(
             means, quats, scales, camera.viewmat(), camera.K, self.width,
             self.height, eps2d=opts.eps2d, near_plane=opts.near_plane,
             far_plane=opts.far_plane, radius_clip=opts.radius_clip,
