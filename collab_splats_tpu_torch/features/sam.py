@@ -17,6 +17,9 @@ names and layout (``scripts/convert_sam.py``; load them with
 The convolutions are ``F.conv2d`` / ``F.conv_transpose2d`` under the
 package's TF32-off setting; every resize is ``decoder.resize_bilinear``,
 JAX's linear resize.
+The two-way transformer's LayerNorms take ``mask_decoder_forward``'s
+``ln_eps``: the JAX package's 1e-6 by default, SAM's own 1e-5
+(:data:`DECODER_LN_EPS`) for a published checkpoint.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ from .vit import Params, layer_norm
 IMG_SIZE = 1024
 EMBED_HW = 64
 PROMPT_DIM = 256
+# SAM's two-way transformer LayerNorms are nn.LayerNorm at its default eps;
+# its encoder's and channel LayerNorms (neck, upscaling) take 1e-6.
+DECODER_LN_EPS = 1e-5
 
 
 # ------------------------------------------------------------ image encoder
@@ -188,7 +194,7 @@ def _attn(q, k, v, p, pre, num_heads):
 
 
 def _twoway_block(tokens, image, token_pe, image_pe, p, i, heads,
-                  skip_first_pe: bool):
+                  skip_first_pe: bool, eps: float):
     pre = f"dec.layers.{i}"
     # 1. Token self-attention; SAM's first layer skips the positions and
     # the residual (the queries are replaced, not added to).
@@ -197,19 +203,23 @@ def _twoway_block(tokens, image, token_pe, image_pe, p, i, heads,
     else:
         q = tokens + token_pe
         tokens = tokens + _attn(q, q, tokens, p, f"{pre}.self_attn", heads)
-    tokens = layer_norm(tokens, p[f"{pre}.ln1.scale"], p[f"{pre}.ln1.bias"])
+    tokens = layer_norm(tokens, p[f"{pre}.ln1.scale"],
+                        p[f"{pre}.ln1.bias"], eps)
     # 2. Token -> image cross attention.
     tokens = tokens + _attn(tokens + token_pe, image + image_pe, image, p,
                             f"{pre}.cross_t2i", heads)
-    tokens = layer_norm(tokens, p[f"{pre}.ln2.scale"], p[f"{pre}.ln2.bias"])
+    tokens = layer_norm(tokens, p[f"{pre}.ln2.scale"],
+                        p[f"{pre}.ln2.bias"], eps)
     # 3. MLP on the tokens.
     h = torch.relu(tokens @ p[f"{pre}.mlp.w1"] + p[f"{pre}.mlp.b1"])
     tokens = tokens + (h @ p[f"{pre}.mlp.w2"] + p[f"{pre}.mlp.b2"])
-    tokens = layer_norm(tokens, p[f"{pre}.ln3.scale"], p[f"{pre}.ln3.bias"])
+    tokens = layer_norm(tokens, p[f"{pre}.ln3.scale"],
+                        p[f"{pre}.ln3.bias"], eps)
     # 4. Image -> token cross attention.
     image = image + _attn(image + image_pe, tokens + token_pe, tokens, p,
                           f"{pre}.cross_i2t", heads)
-    image = layer_norm(image, p[f"{pre}.ln4.scale"], p[f"{pre}.ln4.bias"])
+    image = layer_norm(image, p[f"{pre}.ln4.scale"], p[f"{pre}.ln4.bias"],
+                       eps)
     return tokens, image
 
 
@@ -228,8 +238,10 @@ def mask_decoder_forward(
     image_pe: torch.Tensor,            # [256, 64, 64]
     sparse_prompts: torch.Tensor,      # [B, P, 256]
     multimask: bool = False,
+    ln_eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SAM's two-way mask decoder over a batch of prompts.
+    """SAM's two-way mask decoder over a batch of prompts; ``ln_eps`` is
+    its two-way transformer's LayerNorm eps.
 
     Returns (low_res_masks [B, M, 256, 256], iou_pred [B, M]); M = 3 with
     ``multimask``, else 1 (SAM's mask slot 0)."""
@@ -247,11 +259,11 @@ def mask_decoder_forward(
     t = tokens
     for i in range(int(params["dec.n_layers"])):
         t, im = _twoway_block(t, im, tokens, pe, params, i, heads,
-                              skip_first_pe=(i == 0))
+                              skip_first_pe=(i == 0), eps=ln_eps)
     # Final token -> image attention and LayerNorm.
     t = t + _attn(t + tokens, im + pe, im, params, "dec.final_attn", heads)
     t = layer_norm(t, params["dec.ln_final.scale"],
-                   params["dec.ln_final.bias"])
+                   params["dec.ln_final.bias"], ln_eps)
 
     # Upscale the image features 4x: convT stride 2 -> LN2d -> GELU ->
     # convT stride 2 -> GELU (weights stored as the forward conv's HWIO).

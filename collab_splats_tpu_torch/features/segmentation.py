@@ -18,6 +18,7 @@ linear and nearest resizes.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -217,14 +218,16 @@ class FelzenszwalbLiteSegmenter:
         return results
 
 
-def object_segment_image(sam, detector) -> Callable[[np.ndarray],
-                                                      List[Dict]]:
+def object_segment_image(sam, detector, auto_mask=None
+                         ) -> Callable[[np.ndarray], List[Dict]]:
     """The reference's ``object_segment_image`` path as a backend: the
-    detector's boxes prompt SAM; with no box, SAM's point-grid masks."""
+    detector's boxes prompt SAM; with no box, SAM's point-grid masks
+    under ``auto_mask`` (an ``AutoMaskConfig``, its defaults if None)."""
     def backend(image):
         boxes, confs = detector(image)
         if len(boxes) == 0:
-            return sam.auto_segment(image)
+            return sam.auto_segment(image) if auto_mask is None \
+                else sam.auto_segment(image, auto_mask)
         return sam.segment_boxes(image, boxes, confs)
 
     return backend
@@ -236,20 +239,27 @@ class Segmentation:
     ``composite`` -> merged id map.  Without a ``backend`` it picks, as the
     JAX package does, YOLO boxes + SAM when both converted checkpoints are
     found, SAM's point grid with SAM alone, else the classical segmenter;
-    the SAM and YOLO towers run on ``device`` (the card by default)."""
+    the SAM and YOLO towers run on ``device`` (the card by default).
+    ``sam_model`` names SAM's encoder (``sam_predictor.SAM_ENCODERS``; its
+    ``sam_<model>.npz`` is looked for and checked, ``sam_vit_b.npz`` as it
+    is without a name), ``auto_mask`` the point grid's settings (an
+    ``AutoMaskConfig``).  ``sam`` is the SAM backend it built, if any."""
 
-    def __init__(self, backend: Optional[object] = None, device=None):
+    def __init__(self, backend: Optional[object] = None, device=None,
+                 sam_model: Optional[str] = None, auto_mask=None):
+        self.sam = None
         if backend is None:
             from .sam_predictor import SamBackend, sam_available
             from .yolo import ObjectAwareDetector, yolo_available
 
-            if sam_available() and yolo_available():
+            if sam_available(sam_model):
+                self.sam = SamBackend(device=device, model=sam_model)
+            if self.sam is not None and yolo_available():
                 backend = object_segment_image(
-                    SamBackend(device=device),
-                    ObjectAwareDetector(device=device))
-            elif sam_available():
-                sam = SamBackend(device=device)
-                backend = lambda image: sam.auto_segment(image)  # noqa: E731
+                    self.sam, ObjectAwareDetector(device=device), auto_mask)
+            elif self.sam is not None:
+                backend = functools.partial(self.sam.auto_segment,
+                                            config=auto_mask)
             else:
                 backend = FelzenszwalbLiteSegmenter()
         self.backend = backend

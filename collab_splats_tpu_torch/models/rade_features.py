@@ -26,6 +26,7 @@ from ..features import decoder as decoder_lib
 from ..features.similarity import compute_similarity
 from ..ops.rasterize import RenderMeta
 from ..train import losses
+from ..utils import profiling
 from . import rade_gs
 from .gaussians import GaussianParams
 
@@ -130,17 +131,19 @@ def similarity_map(
     config: RadeFeaturesConfig,
     resize_factor: float = 8.0,
 ) -> torch.Tensor:
-    """Text-query similarity map [H, W, 1] at the RGB resolution."""
-    decoded = decoder_lib.decode_rendered_features(
-        decoder, outputs["features"], config.feature_dims_dict(),
-        config.main_feature_name, resize_factor=resize_factor)
-    sim = compute_similarity(decoded[config.main_feature_name],
-                             text_embeddings, num_positive,
-                             method=config.similarity_method)
-    h, w = outputs["rgb"].shape[:2]
-    if sim.shape[:2] != (h, w):
-        sim = decoder_lib.resize_bilinear(sim, (h, w))
-    return sim
+    """Text-query similarity map [H, W, 1] at the RGB resolution (span
+    ``query.similarity``)."""
+    with profiling.span("query.similarity"):
+        decoded = decoder_lib.decode_rendered_features(
+            decoder, outputs["features"], config.feature_dims_dict(),
+            config.main_feature_name, resize_factor=resize_factor)
+        sim = compute_similarity(decoded[config.main_feature_name],
+                                 text_embeddings, num_positive,
+                                 method=config.similarity_method)
+        h, w = outputs["rgb"].shape[:2]
+        if sim.shape[:2] != (h, w):
+            sim = decoder_lib.resize_bilinear(sim, (h, w))
+        return sim
 
 
 def query_vertices(

@@ -209,7 +209,8 @@ def test_segment_boxes_and_auto_segment_match_jax(predictors):
         assert abs(a["area"] - b["area"]) <= 2
     kw = dict(points_per_side=3, pred_iou_thresh=-1e9, stability_thresh=0.0,
               min_area=1)
-    ra, ga = ref.auto_segment(img, **kw), got.auto_segment(img, **kw)
+    ra = ref.auto_segment(img, **kw)
+    ga = got.auto_segment(img, tpred.AutoMaskConfig(**kw))
     assert len(ga) == len(ra)
     for a, b in zip(ga, ra):
         np.testing.assert_allclose(a["predicted_iou"], b["predicted_iou"],
