@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-Builds the port's seven CUDA kernels from ``collab_splats_tpu_torch/csrc``
+Builds the port's eight CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the fused
-projection, forward and backward, on the bench scene in 2,524,288 rows; the
+projection, forward and backward, on the bench scene in 2,524,288 rows;
+SAM's fused mask upscaling at 64 prompts and at 1, beside the cuDNN chain;
+the
 per-tile pair, which reads each slot's row through the aligned ids, at C = 3
 and 16 colour channels and stop_threshold 0 and 1e-4 with a nonzero
 per-slot sink; the four compositing kernels also on the seeded edge cases of
@@ -160,7 +162,7 @@ from collab_splats_tpu_torch.models import gaussians, rade_features, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
                                               composite, projection,
-                                              segsum_kernel)
+                                              sam_upscale, segsum_kernel)
 from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1283,6 +1285,76 @@ def check_projection(scene):
             **t}
 
 
+# SAM's mask upscaling: float32 operations per image-feature pixel (the
+# two products, 256 x 256 and 4 x 64 x 128, and 16 x 32 x 4 of the mask
+# product, two each), and the prompt batches it is checked and timed at.
+UPSCALE_OPS_PER_PIXEL = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 4)
+UPSCALE_BATCHES = (64, 1)
+
+
+def upscale_inputs(b, seed, dev):
+    """Seeded upscaling weights at SAM's widths (every bias nonzero), image
+    features [b, 4096, 256] and hypernetwork outputs [b, 4, 32]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=g, device=dev)
+
+    p = {"dec.up1.w": draw(2, 2, 64, 256, scale=256 ** -0.5),
+         "dec.up1.b": draw(64, scale=0.1),
+         "dec.up_ln.scale": draw(64, scale=0.2, shift=1.0),
+         "dec.up_ln.bias": draw(64, scale=0.1),
+         "dec.up2.w": draw(2, 2, 32, 64, scale=64 ** -0.5),
+         "dec.up2.b": draw(32, scale=0.1)}
+    return p, draw(b, 4096, 256), draw(b, 4, 32)
+
+
+def check_sam_upscale(dev):
+    """Kernel 8 (SAM's fused mask upscaling) against
+    ``sam.upscale_masks_plain`` at 64 prompts (the automatic masks' batch)
+    and at 1 (the tail of a view's box batches): within 1e-5 of the
+    largest logit, a repeat bit-identical; then its time beside its bound
+    and beside the plain chain's (``F.conv_transpose2d``, cuDNN's
+    data-gradient kernels: the yardstick, ``library_ms``).  Returns the
+    kernel entry's fields (times at 64 prompts)."""
+    rec, errs = {}, {}
+    for b in UPSCALE_BATCHES:
+        p, im, hyper = upscale_inputs(b, 80 + b, dev)
+        with torch.no_grad():
+            got = sam_upscale.upscale_masks(p, im, hyper)
+            again = sam_upscale.upscale_masks(p, im, hyper)
+            ref = sam_mod.upscale_masks_plain(p, im, hyper)
+            if not torch.equal(got, again):
+                raise AssertionError(f"sam_upscale (B={b}): a repeat "
+                                     "differs")
+            errs[b] = rel_err(got, ref.cpu())
+            if errs[b] > 1e-5:
+                raise AssertionError(f"sam_upscale (B={b}): error "
+                                     f"{errs[b]:.3g} of the largest logit")
+            del got, again, ref
+            rec[b] = {
+                "ms": median_ms(
+                    lambda: sam_upscale.upscale_masks(p, im, hyper)),
+                "library_ms": median_ms(
+                    lambda: sam_mod.upscale_masks_plain(p, im, hyper)),
+                "bound": bound(4 * (im.numel() + b * 4 * 256 * 256),
+                               UPSCALE_OPS_PER_PIXEL * b * 4096)}
+        del im, hyper
+        torch.cuda.empty_cache()
+    say("parity sam_upscale: max abs err over the largest logit " + ", ".join(
+        f"B={b} {e:.3g}" for b, e in errs.items()) + "; repeats "
+        "bit-identical")
+    say("sam_upscale times (CUDA events, ms): " + "; ".join(
+        f"B={b}: kernel {r['ms']:.4f} (bound {r['bound'][0]:.4f} by "
+        f"{r['bound'][1]}), the cuDNN chain {r['library_ms']:.4f}"
+        for b, r in rec.items()))
+    r = rec[UPSCALE_BATCHES[0]]
+    return {"err": max(errs.values()), "ms": r["ms"],
+            "plain_ms": r["library_ms"], "library_ms": r["library_ms"],
+            "bound": r["bound"], "ms_b1": rec[1]["ms"],
+            "library_ms_b1": rec[1]["library_ms"]}
+
+
 def layer_times(params, alive, cam, cfg, step=0):
     """Median ms of each layer of one render at ``step``, called in the
     order ``ops/rasterize.py::render_tiled`` calls them."""
@@ -1745,7 +1817,8 @@ def counts():
             "composite_tiles": composite.launches,
             "composite_tiles_bwd": composite.bwd_launches,
             "project": projection.launches,
-            "project_bwd": projection.bwd_launches}
+            "project_bwd": projection.bwd_launches,
+            "sam_upscale": sam_upscale.launches}
 
 
 def reset_counts():
@@ -1753,6 +1826,7 @@ def reset_counts():
     batched.launches = batched.bwd_launches = 0
     composite.launches = composite.bwd_launches = 0
     projection.launches = projection.bwd_launches = 0
+    sam_upscale.launches = 0
 
 
 @contextlib.contextmanager
@@ -1771,6 +1845,7 @@ def uncounted():
         composite.bwd_launches = saved["composite_tiles_bwd"]
         projection.launches = saved["project"]
         projection.bwd_launches = saved["project_bwd"]
+        sam_upscale.launches = saved["sam_upscale"]
 
 
 def train_main_path(tr, steps, refine_at):
@@ -2920,6 +2995,16 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
                                    device=dev)
     seg = segmentation.Segmentation(
         backend=segmentation.object_segment_image(sam, det))
+    # The prompts of each decoder call: kernel 8 runs once per non-empty
+    # prompt batch.
+    prompt_batches = []
+    decode = sam._decode
+
+    def counted_decode(sparse, multimask):
+        prompt_batches.append(sparse.shape[0])
+        return decode(sparse, multimask)
+
+    sam._decode = counted_decode
     metas, views = [], []
     with torch.no_grad():
         for cam in gcams:
@@ -2939,9 +3024,11 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
     want.update(decode=n_steps + 1 + len(gcams),
                 composite=n_steps + 1 + len(gcams), composite_bwd=n_steps,
                 segment_sum=2 * n_steps, project=n_steps + 1 + len(gcams),
-                project_bwd=n_steps)
-    if launches != want:
-        raise AssertionError(f"path 8: launches {launches}, expected {want}")
+                project_bwd=n_steps,
+                sam_upscale=sum(1 for n in prompt_batches if n))
+    if launches != want or want["sam_upscale"] == 0:
+        raise AssertionError(f"path 8: launches {launches}, expected {want} "
+                             f"(SAM prompt batches {prompt_batches})")
 
     # What came out: the maps' shapes, the cache read back to the bits.
     for name, shape in TOWER_MAPS.items():
@@ -4481,6 +4568,8 @@ def main() -> int:
     for name, sc in scenes.items():
         check_pallas_vs_xla(name, sc)
     proj_rec = check_projection(scenes["bench"])
+    with uncounted():
+        up_rec = check_sam_upscale(dev)
     seg_err = check_segsum(
         render(*scenes["bench"][:2], scenes["bench"][2][0],
                scenes["bench"][3])[1].bins, scenes["bench"][1].shape[0])
@@ -4937,6 +5026,16 @@ def main() -> int:
             "bound_ms": proj_rec[f"{key}_bound"][0],
             "bound_by": proj_rec[f"{key}_bound"][1], "library_ms": None,
         })
+    # Kernel 8's plain version on the card is the cuDNN chain itself.
+    kernels.append({
+        "name": "sam_upscale", "route": "cuda",
+        "source": "collab_splats_tpu_torch/csrc/sam_upscale.cu",
+        "replaces": None, "launches": launches["sam_upscale"],
+        "max_err_over_max_ref": up_rec["err"], "ms": up_rec["ms"],
+        "plain_ms": up_rec["plain_ms"], "bound_ms": up_rec["bound"][0],
+        "bound_by": up_rec["bound"][1], "library_ms": up_rec["library_ms"],
+        "ms_b1": up_rec["ms_b1"], "library_ms_b1": up_rec["library_ms_b1"],
+    })
     say(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(f"card: {CARD}")
     print(json.dumps({"kernels": kernels}))

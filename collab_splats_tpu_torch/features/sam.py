@@ -10,13 +10,17 @@ names and layout (``scripts/convert_sam.py``; load them with
   of two convolutions with channel LayerNorms) -> [256, 64, 64];
 * :func:`encode_boxes`, :func:`encode_points`, :func:`dense_pe`: prompts
   in random-Fourier positional encoding;
-* :func:`mask_decoder_forward`: the two-way transformer, the output
-  upscaling (transposed convolutions), the hypernetwork MLPs and the IoU
-  head, for a batch of prompts at once (JAX maps one prompt at a time).
+* :func:`mask_decoder_forward`: the two-way transformer, the hypernetwork
+  MLPs, the output upscaling with the mask product (:func:`upscale_masks`)
+  and the IoU head, for a batch of prompts at once (JAX maps one prompt at
+  a time).
 
-The convolutions are ``F.conv2d`` / ``F.conv_transpose2d`` under the
-package's TF32-off setting; every resize is ``decoder.resize_bilinear``,
-JAX's linear resize.
+The upscaling's two transposed convolutions, channel LayerNorm, GELUs and
+mask product are one hand-written kernel on the card
+(``ops/cuda/sam_upscale.py``) and :func:`upscale_masks_plain`
+(``F.conv_transpose2d``) on the CPU.  The other convolutions are
+``F.conv2d`` under the package's TF32-off setting; every resize is
+``decoder.resize_bilinear``, JAX's linear resize.
 The two-way transformer's LayerNorms take ``mask_decoder_forward``'s
 ``ln_eps``: the JAX package's 1e-6 by default, SAM's own 1e-5
 (:data:`DECODER_LN_EPS`) for a published checkpoint.
@@ -30,6 +34,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda import sam_upscale
+from ..utils import profiling
 from .decoder import resize_bilinear
 from .vit import Params, layer_norm
 
@@ -265,8 +271,22 @@ def mask_decoder_forward(
     t = layer_norm(t, params["dec.ln_final.scale"],
                    params["dec.ln_final.bias"], ln_eps)
 
-    # Upscale the image features 4x: convT stride 2 -> LN2d -> GELU ->
-    # convT stride 2 -> GELU (weights stored as the forward conv's HWIO).
+    hyper = torch.stack([_mlp3(t[:, 1 + j], params, f"dec.hyper.{j}")
+                         for j in range(n_mask_tokens)], dim=1)  # [B, M, 32]
+    masks = upscale_masks(params, im, hyper)
+    iou = _mlp3(t[:, 0], params, "dec.iou_head")
+    if multimask:
+        return masks[:, 1:], iou[:, 1:]
+    return masks[:, :1], iou[:, :1]
+
+
+def upscale_masks_plain(params: Params, im: torch.Tensor,
+                        hyper: torch.Tensor) -> torch.Tensor:
+    """The decoder's image features ``im`` [B, 4096, 256] upscaled 4x
+    (convT stride 2 -> LN2d -> GELU -> convT stride 2 -> GELU; weights
+    stored as the forward conv's HWIO) and multiplied by the hypernetwork
+    outputs ``hyper`` [B, M, 32] -> mask logits [B, M, 256, 256]."""
+    b = im.shape[0]
     x = im.transpose(1, 2).reshape(b, PROMPT_DIM, EMBED_HW, EMBED_HW)
     x = F.conv_transpose2d(x, params["dec.up1.w"].permute(3, 2, 0, 1),
                            params["dec.up1.b"], stride=2)
@@ -276,14 +296,20 @@ def mask_decoder_forward(
     x = F.gelu(F.conv_transpose2d(
         x, params["dec.up2.w"].permute(3, 2, 0, 1), params["dec.up2.b"],
         stride=2))                                        # [B, 32, 256, 256]
-    hyper = torch.stack([_mlp3(t[:, 1 + j], params, f"dec.hyper.{j}")
-                         for j in range(n_mask_tokens)], dim=1)  # [B, M, 32]
-    masks = (hyper @ x.flatten(2)).reshape(b, n_mask_tokens,
-                                           *x.shape[2:])
-    iou = _mlp3(t[:, 0], params, "dec.iou_head")
-    if multimask:
-        return masks[:, 1:], iou[:, 1:]
-    return masks[:, :1], iou[:, :1]
+    return (hyper @ x.flatten(2)).reshape(b, hyper.shape[1], *x.shape[2:])
+
+
+def upscale_masks(params: Params, im: torch.Tensor,
+                  hyper: torch.Tensor) -> torch.Tensor:
+    """:func:`upscale_masks_plain` on the CPU; on the card the fused kernel
+    (``ops/cuda/sam_upscale.py``), which raises on what it does not take.
+    Recorded as the span ``sam.upscale``; the counter ``sam.fused_up``
+    counts the prompts the kernel ran (0 on the CPU)."""
+    with profiling.span("sam.upscale"):
+        if im.device.type == "cpu":
+            profiling.count("sam.fused_up", 0)
+            return upscale_masks_plain(params, im, hyper)
+        return sam_upscale.upscale_masks(params, im, hyper)
 
 
 def postprocess_masks(low_res: torch.Tensor, orig_hw: Tuple[int, int],
