@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+"""The PyTorch/CUDA port's correctness run on one CUDA card.
 
 Builds the port's eight CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the fused
@@ -48,7 +48,7 @@ the port's thirteen main paths:
    against the plain version and a repeated chi field bit-identical; then
    the TSDF exporter on a flat disk and the level-set and depth-and-normal
    Poisson exporters on the flagship scene, card against CPU, and the
-   latter two at full size on the card, with each meshing layer's time;
+   latter two at full size on the card;
 8. the feature towers at their released shapes (CLIP ViT-L/14@336 and its
    text tower, DINOv2 ViT-S/14, SAM ViT-B, YOLOv8x), with seeded weights
    written in the converters' npz layouts to a temporary directory and
@@ -69,9 +69,8 @@ the port's thirteen main paths:
    ``COLLAB_SPLATS_WEIGHTS``), JSONL and TensorBoard writers read back, and
    ``dataset_hbm_budget_bytes=0`` so every frame streams from pinned host
    memory; the same steps cached on the card give the same bits, a
-   repeated step too, every kernel holds on a step's own inputs,
-   ``render_tiled_batch`` equals four single renders, and each option's
-   layer is timed;
+   repeated step too, every kernel holds on a step's own inputs, and
+   ``render_tiled_batch`` equals four single renders;
 10. the ``Splatter`` pipeline on a dataset that ``write_synthetic_dataset``
    renders from the bench scene (ten orbit cameras at 1280x720 through the
    port's PNG codec, 262,144 means in sparse.ply): RaDe-GS at capacity
@@ -88,8 +87,7 @@ the port's thirteen main paths:
    one sharded refine, ten tile-sharded steps at send_cap = shard and two
    at shard / 8; the first step's loss and pre-Adam gradients against the
    single-device step, the routed step against the all-gather one, a
-   repeated step's bits, kernels 1-4 on both steps' own inputs, and the
-   step times (``utils/profiling.py``) beside the single-device step's;
+   repeated step's bits, and kernels 1-4 on both steps' own inputs;
 12. ``render_golden`` on the card at 4,096 Gaussians and 512x512, both
    tiled renderers held against it, then the analytic scene
    (``data/analytic.py``: eight 640x480 views ray-traced on the host,
@@ -106,13 +104,14 @@ the port's thirteen main paths:
    checkpoint, a 500-step ``--features`` leg and ``feature_chain_eval`` on
    its checkpoint; kernels 1-4 held on one of its steps.
 
-It checks what comes out, the kernels each path launches (path 7 needs
-``cpp/libmesh_repair.so``, built at first use), and prints
-per-layer and per-kernel timings (the segment sum at the expand_rows
-backward's D = 15 rows and the statistic's D = 2 rows, each beside
-``index_add_``), with the share of (warp, slot) pairs in which each
-compositing backward finds a live pixel and the share of pairs that the
-batched forward's cull decides without exp.
+It checks what comes out and the kernels each path launches (path 7
+needs ``cpp/libmesh_repair.so``, built at first use).  It times no layer
+and no path: per-layer and per-step times are ``benchmark/run.py``'s, with
+``--trace 1`` for the program's spans and the device trace's breakdown.
+It times each kernel alone at the bench scene's main-path shapes (CUDA
+events, median of REPS), beside its bound at the card's published rates
+and, for kernels 4 and 8, beside the library call in their place
+(``index_add_``, the cuDNN chain).
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -120,8 +119,8 @@ Run it from the repository root, on a machine with a CUDA card and nvcc:
 
 Any failure raises and exits non-zero.  The last line of a successful run
 is ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on a main path, its error against its plain version,
-and its times beside its bound.
+with its launches on the main paths, its error against its plain version,
+and its time beside its bound.
 """
 
 import contextlib
@@ -166,7 +165,6 @@ from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
 from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
-from collab_splats_tpu_torch.utils import profiling
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
 # the bounds below are computed from.
@@ -176,7 +174,6 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # Gradients: rtol 5e-4 and atol 5e-5 * max|g| (tests/test_pallas.py:205-206).
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5
 REPS = 10
-PLAIN_REPS = 3     # the plain versions of the backward run for seconds
 TRAIN_STEPS = 20
 REG_FROM = 10      # the depth-normal loss from this step on
 REFINE_EVERY = 8   # opacity reset after step 8, refine pass after step 16
@@ -187,7 +184,6 @@ PALLAS_REG_FROM = 6
 PALLAS_REFINE_EVERY = 4
 PALLAS_REFINE_AT = 12
 FIT_STEPS = 300
-RENDER_REPS = 30   # the host-clock render time spreads more than a kernel's
 TS = 16
 NEAR = RenderOptions().near_plane
 KEYS = ("rgb", "depth", "median_depth", "normals", "accumulation")
@@ -206,60 +202,21 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def timings(fn, host_clock=False, reps=REPS):
-    """``reps`` synchronised timings of ``fn`` in ms, after one warm-up:
-    CUDA events around a kernel, the host clock around a whole render."""
+def median_ms(fn, reps=REPS):
+    """The median of ``reps`` CUDA-event timings of ``fn`` in ms, after one
+    warm-up."""
     fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
-        if host_clock:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        else:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-    return times
-
-
-def median_ms(fn, host_clock=False, reps=REPS):
-    return statistics.median(timings(fn, host_clock, reps))
-
-
-def traced_totals(fn, reps=3):
-    """(reps, the program's span and counter totals) of ``reps`` calls of
-    ``fn``, each in the span ``smoke.call``, after one untraced call, read
-    inside ``utils/profiling.trace`` (into a temporary directory)."""
-    fn()
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d, profiling.trace(d):
-        for _ in range(reps):
-            with profiling.span("smoke.call"):
-                fn()
-        return reps, profiling.totals()
-
-
-def say_totals(what, traced, say):
-    """One line of :func:`traced_totals`: per call, each span's card ms
-    (its stretch of the device timeline), host ms and count, by card
-    time, then the counters."""
-    reps, totals = traced
-    spans = sorted(totals["spans"].items(),
-                   key=lambda kv: -(kv[1]["card_s"] or 0.0))
-    say(f"{what} (utils/profiling spans per call: card ms / host ms / "
-        f"count): " + "; ".join(
-            f"{k} {(v['card_s'] or 0.0) * 1e3 / reps:.4f} / "
-            f"{v['host_s'] * 1e3 / reps:.4f} / {v['count'] / reps:g}"
-            for k, v in spans)
-        + "; counters per call: " + ", ".join(
-            f"{k} {v / reps:g}" for k, v in sorted(totals["counters"].items())))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def assert_grad_close(got, ref, what):
@@ -554,8 +511,7 @@ def check_segsum_streams(dev) -> float:
     """Kernel 4 against its plain version on the skewed and the
     tile-length streams at D = 15 and D = 2, bit-identical and with a
     bit-identical repeat; on the tile-length stream also with every
-    segment left to the group walk (long_rows = TILE_ROWS), timed both ways
-    beside index_add_."""
+    segment left to the group walk (long_rows = TILE_ROWS)."""
     idx = skewed_ids(dev)
     counts = torch.bincount(idx, minlength=SKEW_N)
     lo, hi = SKEW_EMPTY
@@ -573,28 +529,17 @@ def check_segsum_streams(dev) -> float:
     longest, share = long_rows_share(tidx, SKEW_N)
     if longest != TILE_ROWS:
         raise AssertionError(f"tile-length stream: longest segment {longest}")
-    times = []
     for d, args in stream_args(tidx, 20).items():
         check_segsum_rows(*args, f"tile-length D={d}")
         walk = segsum_kernel.segment_sum_sorted(*args, long_rows=TILE_ROWS)
         if not torch.equal(walk, segsum_kernel.segment_sum_plain(*args)):
             raise AssertionError(f"segment_sum tile-length D={d}: the group "
                                  "walk alone is not bit-identical")
-        calls = {
-            "kernel": lambda: segsum_kernel.segment_sum_sorted(*args),
-            "group walk alone": lambda: segsum_kernel.segment_sum_sorted(
-                *args, long_rows=TILE_ROWS),
-            "index_add_": lambda: torch.zeros(
-                (SKEW_N, d), device=dev).index_add_(0, tidx.long(), args[2]),
-        }
-        times.append(f"D={d}: " + ", ".join(
-            f"{k} {median_ms(f):.4f} ms" for k, f in calls.items()))
     say(f"parity tile-length stream: segment_sum at N={SKEW_N}, M={SKEW_M}, "
         f"{TILE_LONG_IDS} ids owning {TILE_ROWS} rows each ("
         f"{100 * share:.2f}% of the rows in segments over "
         f"{segsum_kernel.LONG_ROWS}): bit-identical to the plain version, "
-        f"with and without the block path; time (median of {REPS}) "
-        + "; ".join(times))
+        f"with and without the block path")
     return 0.0
 
 
@@ -706,38 +651,6 @@ def tile_alphas(g, mask, ntx):
 def live_pairs(g, mask, ntx) -> int:
     """(pixel, window slot) pairs whose alpha passes the cutoff."""
     return sum(int((a > 0).sum()) for a in tile_alphas(g, mask, ntx))
-
-
-def live_warp_slots(g, mask, ntx):
-    """(warp, window slot) pairs in which some pixel of the warp's 32 passes
-    the alpha cutoff (the pairs kernel 3 reduces over a warp; its warps own
-    8x4 blocks of the tile), and all (warp, masked-in slot) pairs."""
-    live = sum(int(warp_blocks(a > 0).sum())
-               for a in tile_alphas(g, mask, ntx))
-    return live, TS * TS // 32 * int((mask > 0).sum())
-
-
-def cull_shares(g, mask, ntx):
-    """Of the (pixel, masked-in window slot) pairs: the share kernel 2
-    decides without exp (sigma < 0, or beyond sigma_cut), and the share
-    whose alpha passes the cutoff."""
-    culled = live = 0
-    for s in range(0, g.shape[0], 64):
-        gg = g[s:s + 64]
-        up, vp = compositing.pixel_centers(
-            torch.arange(s, s + gg.shape[0], device=g.device), ntx, TS)
-        du = up[:, :, None] - gg[:, None, :, 0]
-        dv = vp[:, :, None] - gg[:, None, :, 1]
-        sigma = 0.5 * (gg[:, None, :, 2] * du * du
-                       + gg[:, None, :, 4] * dv * dv) \
-            + gg[:, None, :, 3] * du * dv
-        cut = compositing.sigma_cut(gg[..., 8])[:, None, :]
-        m = mask[s:s + 64, None, :] > 0
-        culled += int((((sigma < 0) | (sigma > cut)) & m).sum())
-    for a in tile_alphas(g, mask, ntx):
-        live += int((a > 0).sum())
-    masked = TS * TS * int((mask > 0).sum())
-    return culled / masked, live / masked
 
 
 def composite_bound(g, mask, ntx):
@@ -949,25 +862,6 @@ def tiles_pairs(ti, nchunks):
     return valid, live
 
 
-def warp_blocks(live):
-    """[T, P, K] pixel flags -> [T, 8, K]: whether some pixel of each
-    warp's 8x4 block of the tile (as kernels 3 and 6 lay them out) is set."""
-    t, k = live.shape[0], live.shape[2]
-    blocks = live.reshape(t, 4, 4, 2, 8, k).permute(0, 1, 3, 2, 4, 5)
-    return blocks.reshape(t, 8, 32, k).any(2)
-
-
-def tiles_live_warp_slots(ti, nchunks):
-    """(warp, slot) pairs of the chunks the forward ran in which some pixel
-    of the warp passes the alpha cutoff (the pairs kernel 6 reduces over a
-    warp), and all (warp, slot) pairs inside the segments."""
-    live = valid = 0
-    for alpha, inside in tile_chunk_alphas(ti, nchunks):
-        live += int(warp_blocks(alpha > 0).sum())
-        valid += TS * TS // 32 * int(inside.sum())
-    return live, valid
-
-
 def walked_slots(ti, nchunks) -> int:
     """Slots the compositor reads: those below each segment's length in
     the chunks it ran."""
@@ -1117,24 +1011,6 @@ def check_pallas_vs_xla(name, scene):
         + ", ".join(f"{k} {v:.3g}" for (s, k), v in errs.items() if s > 0))
 
 
-def projector(params, alive, cam, opts):
-    """The render's projection layer as a function of nothing, and the
-    activated opacities it takes."""
-    opac = gaussians.activated_opacity(params, alive)
-    scales = gaussians.activated_scales(params)
-    viewmat = cam.viewmat()
-
-    def project():
-        proj = project_gaussians(
-            params["means"], params["quats"], scales, viewmat, cam.K,
-            cam.width, cam.height, eps2d=opts.eps2d,
-            near_plane=opts.near_plane, far_plane=opts.far_plane,
-            radius_clip=opts.radius_clip, opacities=opac)
-        return proj._replace(valid=proj.valid & alive)
-
-    return project, opac
-
-
 # The fused projection (csrc/projection.cu) at the benchmark's table: the
 # bench scene's 1M Gaussians in 2,524,288 rows, the capacity after two
 # growths, the rest dead padding rows.
@@ -1160,8 +1036,8 @@ def check_projection(scene):
     in float64, a repeat bit-identical, and the rows' gradients beside it
     within the same 1e-4 (the camera's instantiation of the kernel
     contracts its products into other FMAs, so they differ by rounding);
-    then each kernel's time beside its bound and the plain chain's.
-    Returns the kernel entries' fields."""
+    then each kernel's time beside its bound.  Returns the kernel entries'
+    fields."""
     params, alive, cams, cfg = scene
     table = gaussians.pad_to_capacity(params, PROJECT_ROWS)
     rows_alive = torch.zeros(PROJECT_ROWS, dtype=torch.bool,
@@ -1236,30 +1112,11 @@ def check_projection(scene):
     g_errs.update({f"{k} (camera)": v for k, v in c_errs.items()})
     del c_ref
 
-    def plain_step():
-        leaves = [x.clone().requires_grad_(True)
-                  for x in (means, quats, scales)]
-        out = project_gaussians(*leaves, *fwd_args[3:7], eps2d=opts.eps2d,
-                                near_plane=opts.near_plane,
-                                far_plane=opts.far_plane,
-                                radius_clip=opts.radius_clip,
-                                opacities=opac)
-        torch.autograd.grad([getattr(out, n) for n in PROJECT_FIELDS],
-                            leaves, cots)
-
     with uncounted():
         t = {"project_fwd_ms": median_ms(
                 lambda: projection.project_fwd(*fwd_args)),
              "project_bwd_ms": median_ms(
                 lambda: projection.project_bwd(*bwd_args))}
-        camera_ms = median_ms(
-            lambda: projection.project_bwd(*bwd_args, camera=True))
-    t["project_fwd_plain_ms"] = median_ms(
-        lambda: project_gaussians(*fwd_args[:7], eps2d=opts.eps2d,
-                                  opacities=opac), reps=PLAIN_REPS)
-    t["project_bwd_plain_ms"] = median_ms(
-        lambda: project_backward(*bwd_args), reps=PLAIN_REPS)
-    chain_ms = median_ms(plain_step, reps=PLAIN_REPS)
     t["project_fwd_bound"] = bound(PROJECT_FWD_BYTES * PROJECT_ROWS,
                                    PROJECT_FWD_OPS * PROJECT_ROWS)
     t["project_bwd_bound"] = bound(PROJECT_BWD_BYTES * PROJECT_ROWS,
@@ -1276,18 +1133,15 @@ def check_projection(scene):
         f"{t['project_fwd_ms']:.4f} (bound {t['project_fwd_bound'][0]:.4f} "
         f"by {t['project_fwd_bound'][1]}), backward kernel "
         f"{t['project_bwd_ms']:.4f} (bound {t['project_bwd_bound'][0]:.4f} "
-        f"by {t['project_bwd_bound'][1]}; with the camera's gradient "
-        f"{camera_ms:.4f}); plain forward "
-        f"{t['project_fwd_plain_ms']:.4f}, plain backward "
-        f"{t['project_bwd_plain_ms']:.4f}, the autograd chain forward and "
-        f"backward {chain_ms:.4f}")
+        f"by {t['project_bwd_bound'][1]})")
     return {"fwd_err": max(errs.values()), "bwd_err": max(g_errs.values()),
             **t}
 
 
 # SAM's mask upscaling: float32 operations per image-feature pixel (the
 # two products, 256 x 256 and 4 x 64 x 128, and 16 x 32 x 4 of the mask
-# product, two each), and the prompt batches it is checked and timed at.
+# product, two each), and the prompt batches it is checked at (timed at the
+# first, the automatic masks' batch).
 UPSCALE_OPS_PER_PIXEL = 2 * (256 * 256 + 4 * 64 * 128 + 16 * 32 * 4)
 UPSCALE_BATCHES = (64, 1)
 
@@ -1313,11 +1167,11 @@ def check_sam_upscale(dev):
     """Kernel 8 (SAM's fused mask upscaling) against
     ``sam.upscale_masks_plain`` at 64 prompts (the automatic masks' batch)
     and at 1 (the tail of a view's box batches): within 1e-5 of the
-    largest logit, a repeat bit-identical; then its time beside its bound
-    and beside the plain chain's (``F.conv_transpose2d``, cuDNN's
+    largest logit, a repeat bit-identical; then, at 64, its time beside its
+    bound and beside the plain chain's (``F.conv_transpose2d``, cuDNN's
     data-gradient kernels: the yardstick, ``library_ms``).  Returns the
-    kernel entry's fields (times at 64 prompts)."""
-    rec, errs = {}, {}
+    kernel entry's fields."""
+    errs = {}
     for b in UPSCALE_BATCHES:
         p, im, hyper = upscale_inputs(b, 80 + b, dev)
         with torch.no_grad():
@@ -1332,104 +1186,23 @@ def check_sam_upscale(dev):
                 raise AssertionError(f"sam_upscale (B={b}): error "
                                      f"{errs[b]:.3g} of the largest logit")
             del got, again, ref
-            rec[b] = {
-                "ms": median_ms(
-                    lambda: sam_upscale.upscale_masks(p, im, hyper)),
-                "library_ms": median_ms(
-                    lambda: sam_mod.upscale_masks_plain(p, im, hyper)),
-                "bound": bound(4 * (im.numel() + b * 4 * 256 * 256),
-                               UPSCALE_OPS_PER_PIXEL * b * 4096)}
+            if b == UPSCALE_BATCHES[0]:
+                rec = {
+                    "ms": median_ms(
+                        lambda: sam_upscale.upscale_masks(p, im, hyper)),
+                    "library_ms": median_ms(
+                        lambda: sam_mod.upscale_masks_plain(p, im, hyper)),
+                    "bound": bound(4 * (im.numel() + b * 4 * 256 * 256),
+                                   UPSCALE_OPS_PER_PIXEL * b * 4096)}
         del im, hyper
         torch.cuda.empty_cache()
     say("parity sam_upscale: max abs err over the largest logit " + ", ".join(
         f"B={b} {e:.3g}" for b, e in errs.items()) + "; repeats "
         "bit-identical")
-    say("sam_upscale times (CUDA events, ms): " + "; ".join(
-        f"B={b}: kernel {r['ms']:.4f} (bound {r['bound'][0]:.4f} by "
-        f"{r['bound'][1]}), the cuDNN chain {r['library_ms']:.4f}"
-        for b, r in rec.items()))
-    r = rec[UPSCALE_BATCHES[0]]
-    return {"err": max(errs.values()), "ms": r["ms"],
-            "plain_ms": r["library_ms"], "library_ms": r["library_ms"],
-            "bound": r["bound"], "ms_b1": rec[1]["ms"],
-            "library_ms_b1": rec[1]["library_ms"]}
-
-
-def layer_times(params, alive, cam, cfg, step=0):
-    """Median ms of each layer of one render at ``step``, called in the
-    order ``ops/rasterize.py::render_tiled`` calls them."""
-    opts = cfg.render
-    project, opac = projector(params, alive, cam, opts)
-    proj = project()
-    op = opac * proj.compensation
-    colors = rade_gs.compute_colors(params, cam, step, cfg)
-    plan = tiles.plan_bins(proj, cam.width, cam.height, opts, op)
-    key, gid = binning_kernel.decode_bin_keys(*decode_args(plan))
-    sorted_key, order = torch.sort(key, stable=True)
-    sorted_gid = gid[order]
-
-    def windows():
-        return tiles._windows_from_sorted(
-            sorted_key, sorted_gid, plan.ntx * plan.nty, plan.rank_bits,
-            plan.ntx, plan.nty, plan.k_cap, plan.m_cap, plan.dropped)
-
-    bins = windows()
-    per_gauss = rasterize.pack_per_gauss(proj, op, proj.normal, colors)
-    g = rasterize.window_rows(bins, per_gauss)
-    mask = bins.tile_mask.to(torch.float32)
-    return {
-        "colors": median_ms(
-            lambda: rade_gs.compute_colors(params, cam, step, cfg)),
-        "projection": median_ms(project),
-        "bin plan": median_ms(
-            lambda: tiles.plan_bins(proj, cam.width, cam.height, opts, op)),
-        "decode": median_ms(
-            lambda: binning_kernel.decode_bin_keys(*decode_args(plan))),
-        "sort": median_ms(lambda: torch.sort(key, stable=True)[1]),
-        "windows": median_ms(windows),
-        "gather": median_ms(lambda: rasterize.window_rows(
-            bins, rasterize.pack_per_gauss(proj, op, proj.normal, colors))),
-        "composite": median_ms(lambda: batched.composite_batched_fwd(
-            g, mask, plan.ntx, TS, NEAR)),
-    }
-
-
-def pallas_layer_times(params, alive, cam, cfg, step=0):
-    """Median ms of each layer of one ``backend="pallas"`` render at
-    ``step``, called in the order ``ops/rasterize.py::render_tiled_pallas``
-    calls them."""
-    opts = cfg.render
-    project, opac = projector(params, alive, cam, opts)
-    proj = project()
-    op = opac * proj.compensation
-    colors = rade_gs.compute_colors(params, cam, step, cfg)
-
-    def binning():
-        return tiles.bin_gaussians(proj, cam.width, cam.height, opts, op)
-
-    bins = binning()
-
-    def align():
-        return tiles.align_segments(bins.starts, bins.sorted_gid,
-                                    composite.CHUNK)
-
-    gid, starts, lens, _ = align()
-    per_gauss = rasterize.pad_per_gauss(
-        rasterize.pack_per_gauss(proj, op, proj.normal, colors))
-    k_cap = opts.tile_capacity or tiles.default_tile_capacity(
-        alive.shape[0])
-    args = (per_gauss, gid, starts, lens, bins.num_tiles_x, TS,
-            colors.shape[1], NEAR, opts.stop_threshold,
-            -(-k_cap // composite.CHUNK))
-    return {
-        "colors": median_ms(
-            lambda: rade_gs.compute_colors(params, cam, step, cfg)),
-        "projection": median_ms(project),
-        "binning (plan, decode, sort, windows)": median_ms(binning),
-        "align segments": median_ms(align),
-        "composite_tiles": median_ms(
-            lambda: composite.composite_tiles_fwd(*args)),
-    }
+    say(f"sam_upscale times (CUDA events, ms): B={UPSCALE_BATCHES[0]}: "
+        f"kernel {rec['ms']:.4f} (bound {rec['bound'][0]:.4f} by "
+        f"{rec['bound'][1]}), the cuDNN chain {rec['library_ms']:.4f}")
+    return {"err": max(errs.values()), **rec}
 
 
 def check_outputs(name, out, cam):
@@ -1643,21 +1416,19 @@ def feature_trainer(data, dev, backend="xla", refine_every=REFINE_EVERY,
 
 class Saver:
     """A ``checkpoint_fn`` that saves through ``Trainer.save`` and keeps
-    each checkpoint's path and host seconds."""
+    each checkpoint's path."""
 
     def __init__(self, directory):
-        self.directory, self.paths, self.seconds = directory, [], []
+        self.directory, self.paths = directory, []
 
     def __call__(self, tr):
-        t0 = time.perf_counter()
         self.paths.append(tr.save(self.directory))
-        self.seconds.append(time.perf_counter() - t0)
 
 
 @torch.no_grad()
 def check_step_kernels(kin, pallas, what, stop):
     """Every kernel of one train step against its plain version on the
-    step's own inputs, captured by ``train_layer_times``: the decode
+    step's own inputs, captured by ``train_step_inputs``: the decode
     (bit-exact); kernels 2 and 3 (``"xla"``) or 5 and 6 (``"pallas"``),
     each backward on the loss's cotangent; and kernel 4 on every segment
     sum of the backward and of the statistics, bit-identical.  Returns
@@ -1735,20 +1506,17 @@ def kill_and_resume(data, dev, path, final, steps, refine_at):
     at step SAVE_AT) and trains to ``steps``, across the refine pass; its
     state must be the bits of ``final``, path 5's state at that step."""
     tr = feature_trainer(data, dev)
-    t0 = time.perf_counter()
     tr.restore(path)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
     if tr.step != SAVE_AT:
         raise AssertionError(f"restore: step {tr.step}, expected {SAVE_AT}")
-    hist, _, _ = train_main_path(tr, steps - SAVE_AT, refine_at)
+    hist, _ = train_main_path(tr, steps - SAVE_AT, refine_at)
     bad = same_state(tr.state(), final)
     if bad:
         raise AssertionError(f"kill and resume: differs from the run that "
                              f"was not killed in {bad}")
     r = hist[refine_at - SAVE_AT - 1]
-    say(f"kill and resume: a fresh trainer restored {path.name} in "
-        f"{restore_s:.2f} s and trained steps {SAVE_AT + 1}-{steps} (the "
+    say(f"kill and resume: a fresh trainer restored {path.name} and "
+        f"trained steps {SAVE_AT + 1}-{steps} (the "
         f"refine after step {refine_at}: dup {r['refine_dup']}, split "
         f"{r['refine_split']}, capacity {tr.alive.shape[0]}): parameters "
         f"({len(final['params'])} tensors), decoder, alive mask, Adam state, "
@@ -1810,53 +1578,46 @@ def progressive_phase(data, dev):
 
 
 
+# The launch counts' names here, and the C entries' names that
+# ``ops/cuda/build.py`` counts their launches under.
+KERNELS = {"decode": "decode_bin_keys", "composite": "composite_batched_fwd",
+           "composite_bwd": "composite_batched_bwd",
+           "segment_sum": "segment_sum_sorted",
+           "composite_tiles": "composite_tiles_fwd",
+           "composite_tiles_bwd": "composite_tiles_bwd_call",
+           "project": "project_fwd", "project_bwd": "project_bwd",
+           "sam_upscale": "sam_upscale"}
+
+
 def counts():
-    return {"decode": binning_kernel.launches, "composite": batched.launches,
-            "composite_bwd": batched.bwd_launches,
-            "segment_sum": segsum_kernel.launches,
-            "composite_tiles": composite.launches,
-            "composite_tiles_bwd": composite.bwd_launches,
-            "project": projection.launches,
-            "project_bwd": projection.bwd_launches,
-            "sam_upscale": sam_upscale.launches}
+    return {k: build.launches[name] for k, name in KERNELS.items()}
 
 
 def reset_counts():
-    binning_kernel.launches = segsum_kernel.launches = 0
-    batched.launches = batched.bwd_launches = 0
-    composite.launches = composite.bwd_launches = 0
-    projection.launches = projection.bwd_launches = 0
-    sam_upscale.launches = 0
+    build.launches.clear()
 
 
 @contextlib.contextmanager
 def uncounted():
     """Launches inside the block (a check against a plain version, a timing
     repeat) leave every count as it was before the block."""
-    saved = counts()
+    saved = build.launches.copy()
     try:
         yield
     finally:
-        binning_kernel.launches = saved["decode"]
-        batched.launches = saved["composite"]
-        batched.bwd_launches = saved["composite_bwd"]
-        segsum_kernel.launches = saved["segment_sum"]
-        composite.launches = saved["composite_tiles"]
-        composite.bwd_launches = saved["composite_tiles_bwd"]
-        projection.launches = saved["project"]
-        projection.bwd_launches = saved["project_bwd"]
-        sam_upscale.launches = saved["sam_upscale"]
+        build.launches.clear()
+        build.launches.update(saved)
 
 
 def train_main_path(tr, steps, refine_at):
     """A training main path: ``steps`` steps through ``Trainer.train``
     with every launch count at 0 just before and read just after; the
     opacity reset after step refine_every, the refine pass after step
-    ``refine_at``.  Returns (history, host ms per step, launches)."""
+    ``refine_at``.  Returns (history, launches)."""
     scfg = tr.config.strategy
     reset_at = scfg.refine_every
     logit_cap = math.log(0.2 / 0.8)
-    hist, ms = [], []
+    hist = []
     reset_counts()
     for _ in range(steps):
         if tr.step == refine_at - 1:
@@ -1869,18 +1630,14 @@ def train_main_path(tr, steps, refine_at):
             thresh = float(torch.quantile(avg, 0.99))
             tr.config = dataclasses.replace(tr.config, strategy=(
                 dataclasses.replace(scfg, densify_grad_thresh=thresh)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         tr.train(1, log_every=10 ** 9)   # runs checkpoint_fn, if any
         hist.append(tr.history[-1])
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
         if tr.step == reset_at:
             top = float(tr.params["opacities"].detach()[tr.alive].max())
             if top > logit_cap + 1e-6:
                 raise AssertionError(f"opacity reset: max logit {top}")
-    launches = counts()
-    return hist, ms, launches
+    torch.cuda.synchronize()
+    return hist, counts()
 
 
 def check_training(hist, launches, refine_at, reg_from, per_step):
@@ -1937,21 +1694,6 @@ def check_determinism(tr):
         + "), Adam moments and statistics")
 
 
-def refine_times(tr):
-    """Host-clock ms of the refine pass alone on the trainer's state (its
-    result is dropped): the dense capacity-wide work and the split noise
-    drawn on the card."""
-    scfg = tr.config.strategy
-
-    def run():
-        return strategy.refine(
-            tr.params, tr.alive, tr.strat_state, scfg,
-            generator=torch.Generator(device=tr.device).manual_seed(0),
-            scene_scale=tr.config.scene_scale, screen_size_cull=True)
-
-    return timings(run, host_clock=True)
-
-
 def fitting_run(dev):
     """Fit the flagship scene from a perturbed copy (means jittered,
     colours reset, as tests/test_training.py does) for FIT_STEPS steps;
@@ -1973,14 +1715,12 @@ def fitting_run(dev):
         model=model, max_iterations=FIT_STEPS,
         strategy=strategy.StrategyConfig(warmup_length=10 ** 7)),
         cams, images, init, alive, device=dev)
-    t0 = time.perf_counter()
     first = tr.train_one_step()
     for _ in range(FIT_STEPS - 1):
         last = tr.train_one_step()
-    seconds = time.perf_counter() - t0
     ev = tr.eval_image(cams[0], images[0])
     say(f"fitting run: flagship scene (20,000 Gaussians, 512x512, 4 "
-        f"cameras), {FIT_STEPS} steps in {seconds:.1f} s: PSNR "
+        f"cameras), {FIT_STEPS} steps: PSNR "
         f"{first['psnr']:.2f} dB at the first step, {ev['psnr']:.2f} dB on "
         f"camera 0 after (SSIM {ev['ssim']:.4f}), last loss "
         f"{last['loss']:.5f}")
@@ -2008,14 +1748,15 @@ def captured(module, name, limit=None):
         setattr(module, name, real)
 
 
-def train_layer_times(tr):
-    """Card time of each layer of one train step on camera 0 (median of
-    REPS CUDA-event timings), and the kernels' inputs at the step's
-    shapes, for the trainer's compositor: the decode's and the compositing
-    forward's arguments, the backward's (with the loss's cotangent), and
-    every segment sum of the backward and of the statistics.  With
-    features the loss is rade-features' and the decoder's tensors are
-    leaves too."""
+def train_step_inputs(tr):
+    """The kernels' inputs of one train step on camera 0 with the
+    depth-normal loss on, for the trainer's compositor: the decode's and
+    the compositing forward's arguments, the backward's (with the loss's
+    cotangent), and every segment sum of the backward and of the
+    statistics; with ``"xla"`` also the backward's window rows, mask and
+    ntx, the window gather's ids, and the expand_rows segment sum's
+    arguments on seeded rows of their width.  With features the loss is
+    rade-features' and the decoder's tensors are leaves too."""
     cfg = tr.config.model
     pallas = cfg.render.backend == "pallas"
     feats = tr.features is not None
@@ -2025,105 +1766,50 @@ def train_layer_times(tr):
     leaves = list(params.values()) + dparams
     sink = torch.zeros(sink_shape(cam, alive.shape[0], cfg.render),
                        device=cam.K.device, requires_grad=True)
-
-    def forward():
-        return rade_gs.get_outputs(
-            params, alive, cam, tr.step, cfg,
-            generator=torch.Generator().manual_seed(0), training=True,
-            compute_error_maps=True, absgrad_sink=sink)
-
     fwd_module, fwd_name = ((composite, "composite_tiles_fwd") if pallas
                             else (batched, "composite_batched_fwd"))
     with captured(fwd_module, fwd_name) as fwd_seen, \
             captured(tiles, "decode_bin_keys") as decode_seen:
-        outputs, meta = forward()
-
-    def loss_fn():
-        if feats:
-            return rade_features.get_loss(
-                outputs, image, tr.features[0], params, tr.decoder, alive,
-                tr.step, cfg, reg_active=True)[0]
-        return rade_gs.get_loss(outputs, image, params, alive, tr.step, cfg,
+        outputs, meta = rade_gs.get_outputs(
+            params, alive, cam, tr.step, cfg,
+            generator=torch.Generator().manual_seed(0), training=True,
+            compute_error_maps=True, absgrad_sink=sink)
+    if feats:
+        loss = rade_features.get_loss(
+            outputs, image, tr.features[0], params, tr.decoder, alive,
+            tr.step, cfg, reg_active=True)[0]
+    else:
+        loss = rade_gs.get_loss(outputs, image, params, alive, tr.step, cfg,
                                 reg_active=True)[0]
-
-    loss = loss_fn()
     bwd_module, bwd_name = ((composite, "composite_tiles_bwd_call") if pallas
                             else (batched, "composite_batched_bwd"))
     with captured(bwd_module, bwd_name) as seen, \
             captured(segsum, "segment_sum_sorted") as seg_seen:
-        grads = torch.autograd.grad(loss, leaves + [sink], retain_graph=True,
-                                    allow_unused=True)
+        grads = torch.autograd.grad(loss, leaves + [sink], allow_unused=True)
     if len(seen) != 1:
         raise AssertionError(f"train step: {len(seen)} {bwd_name} calls in "
                              "a backward")
     # The compositing backward's own inputs in the step: its matrix or
     # window rows and the loss's cotangent.
-    bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
-                  for a in seen[0])
-    out = {
-        "forward (render, error maps)": median_ms(forward),
-        **{f"forward: {k}": v for k, v in (
-            pallas_layer_times if pallas else layer_times)(
-                params, alive, cam, cfg, tr.step).items()},
-    }
-    if feats:
-        out["decode and resize"] = median_ms(
-            lambda: decoder_lib.decode_rendered_features(
-                tr.decoder, outputs["features"], cfg.feature_dims_dict(),
-                cfg.main_feature_name))
-        out["feature loss (decode, resize, cosine)"] = median_ms(
-            lambda: rade_features.feature_loss(outputs, tr.features[0],
-                                               tr.decoder, cfg))
-    out.update({
-        "loss": median_ms(loss_fn),
-        "backward (autograd.grad)": median_ms(lambda: torch.autograd.grad(
-            loss, leaves + [sink], retain_graph=True, allow_unused=True)),
-    })
-    # The kernels of the backward, alone, on the step's inputs.
-    n = alive.shape[0]
-    bwd = "composite_tiles_bwd kernel" if pallas else "composite_bwd kernel"
-    out[bwd] = median_ms(lambda: getattr(bwd_module, bwd_name)(*bargs))
+    bargs = detached(seen[0])
     if pallas:
-        ti = TilesInputs(*bargs[:5], bargs[8], bargs[10], bargs[11])
-        idx = segsum.spread_masked(meta.aligned_gid, meta.aligned_valid, n)
-        d = ti.per_gauss.shape[1]
-        kernels = {"tiles": ti, "nchunks": bargs[5], "bwd_args": bargs}
+        kernels = {"tiles": TilesInputs(*bargs[:5], bargs[8], bargs[10],
+                                        bargs[11]),
+                   "nchunks": bargs[5]}
         update = strategy.update_state_from_isect
     else:
+        n = alive.shape[0]
         idx = window_idx(meta.bins, n)
-        d = bargs[0].shape[2]
         kernels = {"g": bargs[0], "mask": bargs[1], "ntx": bargs[9],
-                   "bwd_args": bargs}
+                   "idx": idx, "segsum_args": (
+                       *segsum_inputs(idx, bargs[0].shape[2], 7), n)}
         update = strategy.update_state
-    sorted_ids, order, rows = segsum_inputs(idx, d, 7)
-    out["segment-sum sort"] = median_ms(lambda: torch.sort(idx, stable=True))
-    out["segment_sum kernel"] = median_ms(
-        lambda: segsum_kernel.segment_sum_sorted(sorted_ids, order, rows, n))
-    out["rest of the backward"] = (out["backward (autograd.grad)"] - out[bwd]
-                                   - out["segment-sum sort"]
-                                   - out["segment_sum kernel"])
-    out[f"statistics ({update.__name__})"] = median_ms(
-        lambda: update(tr.strat_state, meta, grads[-1]))
     with captured(segsum, "segment_sum_sorted") as stat_seen:
         update(tr.strat_state, meta, grads[-1])
-    # The statistic's D = 2 rows: this backward's masked |sink gradient|,
-    # on the same sorted ids.
-    valid = meta.aligned_valid if pallas else meta.bins.tile_mask.reshape(-1)
-    g2 = grads[-1].abs()
-    g2 = g2.T if pallas else g2.reshape(-1, 2)
-    rows2 = torch.where(valid[:, None], g2,
-                        torch.zeros((), device=g2.device)).contiguous()
-    kernels["segsum2_args"] = (sorted_ids, order, rows2, n)
-    for p, gr in zip(leaves, grads):
-        p.grad = gr
-    out["Adam" + (" (with the decoder group)" if feats else "")] = median_ms(
-        tr.optimizer.step)   # moves the parameters
-    tr.optimizer.zero_grad(set_to_none=True)
-    kernels.update(segsum_args=(sorted_ids, order, rows, n), idx=idx,
-                   fwd_args=detached(fwd_seen[0]),
+    kernels.update(bwd_args=bargs, fwd_args=detached(fwd_seen[0]),
                    decode_args=detached(decode_seen[0]),
                    step_segsum_args=detached([*seg_seen, *stat_seen]))
-    return out, kernels
+    return kernels
 
 
 def detached(x):
@@ -2139,14 +1825,13 @@ def detached(x):
 
 
 def feature_step_path(data, dev, backend):
-    """Main path 5 (``"xla"``) or 6 (``"pallas"``): the rade-features
-    trainer's layers and every kernel on a step's own inputs (on its first
-    state, put back afterwards), then its steps with the depth-normal loss,
-    one opacity reset and one refine pass, a falling feature loss and a
+    """Main path 5 (``"xla"``) or 6 (``"pallas"``): every kernel of the
+    rade-features trainer on a step's own inputs (on its first state, put
+    back afterwards), then its steps with the depth-normal loss, one
+    opacity reset and one refine pass, a falling feature loss and a
     bit-identical repeated step.  Path 5 saves at step SAVE_AT through
     ``checkpoint_fn`` and is killed and resumed from that save.  Returns
-    the layer times, the kernels' step inputs and errors, and the
-    launches."""
+    the kernels' errors, the launches and path 5's checkpoint."""
     pallas = backend == "pallas"
     steps, reg_from, every = ((PALLAS_STEPS, PALLAS_REG_FROM,
                                PALLAS_REFINE_EVERY) if pallas
@@ -2158,13 +1843,14 @@ def feature_step_path(data, dev, backend):
     tr = feature_trainer(data, dev, backend, every, reg_from,
                          checkpoint_fn=saver)
     start = tr.state()
-    layers, kin = train_layer_times(tr)
+    kin = train_step_inputs(tr)
     tr.load_state(start)
     del start
     what = f"rade-features {backend} step"
     errs = check_step_kernels(kin, pallas, what,
                               tr.config.model.render.stop_threshold)
-    hist, step_ms, launches = train_main_path(tr, steps, refine_at)
+    del kin
+    hist, launches = train_main_path(tr, steps, refine_at)
     check_training(hist, launches, refine_at, reg_from, {
         "decode": 1, "segment_sum": 2,
         **({"composite_tiles": 1, "composite_tiles_bwd": 1} if pallas
@@ -2183,15 +1869,6 @@ def feature_step_path(data, dev, backend):
         f"{tr.alive.shape[0]}; opacity reset after step {every}; "
         f"depth-normal loss from step {reg_from}")
     check_features_falling(hist, f"main path {path}")
-    ckpt_steps = [] if pallas else [SAVE_AT - 1]
-    other = [t for i, t in enumerate(step_ms) if i not in ckpt_steps]
-    say(f"feature train step ({backend}, host clock, bench scene): median "
-        f"{statistics.median(other):.4f} ms over {len(other)} steps "
-        f"without a save, min {min(other):.4f}, max {max(other):.4f}"
-        + ("" if pallas else
-           f"; the step that saved took {step_ms[SAVE_AT - 1]:.4f} ms, the "
-           f"save {1e3 * saver.seconds[0]:.1f} ms ({saver.paths[0].name}, "
-           f"{saver.paths[0].stat().st_size / 2 ** 20:.1f} MiB)"))
     final = tr.state()
     check_determinism(tr)
     del tr
@@ -2200,12 +1877,8 @@ def feature_step_path(data, dev, backend):
         kill_and_resume(data, dev, saver.paths[0], final, steps, refine_at)
     del final
     torch.cuda.empty_cache()
-    return {"layers": layers, "kin": kin, "errs": errs,
-            "launches": launches, "ckpt": saver and saver.paths[0]}
-
-
-def per_element(what, ms, elements):
-    return f"{what} {ms:.4f} ms, {1e6 * ms / elements:.4f} ns per element"
+    return {"errs": errs, "launches": launches,
+            "ckpt": saver and saver.paths[0]}
 
 
 # Main path 7, mesh extraction (meshing/exporters.py) from path 5's
@@ -2216,22 +1889,7 @@ MESH_DEPTH_TRUNC = 6.0
 POISSON_RES = 256
 LEVEL_SET_RES = 128      # the level-set extractor's default
 FLAGSHIP_MESH_SIZE = 512
-MESH_STAGES = ("render", "integrate", "to host", "marching", "clean repair",
-               "transfer", "floor alignment", "write ply")
-POISSON_STAGES = ("scatter", "fft solve", "to host", "marching", "colors")
 TRANSFER_SAMPLE = 256   # vertices whose transfer is held against the CPU
-
-
-def stage_line(times, names):
-    """'name total s (per call ms, ...)' for each stage that ran."""
-    out = []
-    for k in names:
-        if k in times:
-            t = times[k]
-            per = "" if len(t) == 1 else " (" + ", ".join(
-                f"{1e3 * x:.4f}" for x in t) + " ms)"
-            out.append(f"{k} {sum(t):.4f} s{per}")
-    return "; ".join(out)
 
 
 def check_mesh(res, what, latent=0):
@@ -2322,7 +1980,7 @@ def mesh_small_scenes(dev, scenes):
     tests/test_meshing.py (volumes and mesh), the level-set extractor
     (density grid and mesh) and the depth-and-normal Poisson exporter
     (mesh) on the flagship scene; then both on the flagship scene at their
-    full sizes on the card alone, timed."""
+    full sizes on the card alone."""
     disk = synthetic.flat_disk_gaussian(normal=(0, 0, 1), radius=0.5,
                                         thickness=0.005, device=dev)
     disk["opacities"] = torch.full((1, 1), 8.0, device=dev)
@@ -2401,29 +2059,18 @@ def mesh_small_scenes(dev, scenes):
 
     # Full sizes on the card: the level set at 128^3, the depth-normal
     # Poisson over four cameras at grid 256.
-    times = {}
-    t0 = time.perf_counter()
-    res = exporters.LevelSetExtractor(
-        params, alive, cfg, resolution=LEVEL_SET_RES).main(stage_times=times)
-    whole = time.perf_counter() - t0
-    say(f"meshing layers, flagship level set ({LEVEL_SET_RES}^3, host "
-        f"clock): "
-        f"{stage_line(times, ('density grid', 'marching', 'transfer'))}; "
-        f"whole {whole:.4f} s; {len(res['vertices'])} vertices, "
-        f"{len(res['faces'])} faces")
+    res = exporters.LevelSetExtractor(params, alive, cfg,
+                                      resolution=LEVEL_SET_RES).main()
+    say(f"meshing, flagship level set ({LEVEL_SET_RES}^3) on the card: "
+        f"{len(res['vertices'])} vertices, {len(res['faces'])} faces")
     cams = synthetic.orbit_cameras(4, radius=3.0, width=size, height=size,
                                    focal=1.2 * size, device=dev)
-    times = {}
-    t0 = time.perf_counter()
     res = exporters.DepthAndNormalMapsPoissonExporter(
-        params, alive, cfg, grid_res=POISSON_RES).main(cams,
-                                                       stage_times=times)
-    whole = time.perf_counter() - t0
-    say(f"meshing layers, flagship depth-normal Poisson (4 cameras at "
-        f"{size}x{size}, grid {POISSON_RES}, host clock): "
-        f"{stage_line(times, ('render', 'back-project') + POISSON_STAGES)}; "
-        f"whole {whole:.4f} s; {len(res['points'])} points, "
-        f"{len(res['vertices'])} vertices, {len(res['faces'])} faces")
+        params, alive, cfg, grid_res=POISSON_RES).main(cams)
+    say(f"meshing, flagship depth-normal Poisson (4 cameras at "
+        f"{size}x{size}, grid {POISSON_RES}) on the card: "
+        f"{len(res['points'])} points, {len(res['vertices'])} vertices, "
+        f"{len(res['faces'])} faces")
 
 
 def hold_transfer(exporter, res, dev):
@@ -2479,17 +2126,14 @@ def mesh_path(dev, ckpt, cams, render_opts):
     ecfg = exporters.TSDFExporterConfig(depth_trunc=MESH_DEPTH_TRUNC)
     shutil.rmtree(MESH_DIR, ignore_errors=True)
 
-    def export(out_dir, times=None):
+    def export(out_dir):
         ex = exporters.TSDFFusionExporter(params, alive, model, ecfg)
-        return ex, ex.main(cams, out_dir, stage_times=times)
+        return ex, ex.main(cams, out_dir)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = {}
     reset_counts()
-    t0 = time.perf_counter()
-    ex, res = export(MESH_DIR / "tsdf", times)
-    whole = time.perf_counter() - t0
+    ex, res = export(MESH_DIR / "tsdf")
     tsdf_launches = counts()
     peak = torch.cuda.max_memory_allocated()
     n = len(cams)
@@ -2518,12 +2162,6 @@ def mesh_path(dev, ckpt, cams, render_opts):
         f"{lengths.min():.4f} mean {lengths.mean():.4f}; files {files}; "
         f"peak device memory {peak / 2 ** 30:.2f} GiB; libmesh_repair.so "
         f"loaded")
-    per_cam = {k: times[k] for k in ("render", "integrate")}
-    say(f"meshing layers, TSDF export (host clock): "
-        f"{stage_line(times, MESH_STAGES)}; render per camera "
-        f"{1e3 * statistics.median(per_cam['render']):.4f} ms, integrate "
-        f"per camera {1e3 * statistics.median(per_cam['integrate']):.4f} "
-        f"ms (medians); whole export {whole:.4f} s")
     terr = hold_transfer(ex, res, dev)
     say(f"k-NN transfer: {TRANSFER_SAMPLE} seeded vertices, card vs CPU "
         f"over {int(alive.sum())} sources: neighbour sets equal, max abs err "
@@ -2546,11 +2184,8 @@ def mesh_path(dev, ckpt, cams, render_opts):
     # The Poisson route on the same splat.
     gp = exporters.GaussiansToPoissonExporter(params, alive, model,
                                               grid_res=POISSON_RES)
-    ptimes = {}
     reset_counts()
-    t0 = time.perf_counter()
-    pres = gp.main(MESH_DIR / "poisson", stage_times=ptimes)
-    pwhole = time.perf_counter() - t0
+    pres = gp.main(MESH_DIR / "poisson")
     poisson_launches = counts()
     want = {k: {"segment_sum": 2}.get(k, 0) for k in poisson_launches}
     if poisson_launches != want:
@@ -2563,9 +2198,6 @@ def mesh_path(dev, ckpt, cams, render_opts):
         f"{POISSON_RES} over {len(pres['points'])} splats (opacity > 0.1): "
         f"launches { {k: v for k, v in poisson_launches.items() if v} }; "
         f"{len(pres['vertices'])} vertices, {len(pres['faces'])} faces")
-    say(f"meshing layers, Poisson export (host clock): "
-        f"{stage_line(ptimes, POISSON_STAGES)}; whole export {pwhole:.4f} "
-        f"s")
 
     # Kernel 4 on the splat's own rows (normals ++ 1 at the eight corners).
     pts_vox = poisson.voxel_coords(pres["points"], POISSON_RES)[0]
@@ -2582,22 +2214,9 @@ def mesh_path(dev, ckpt, cams, render_opts):
                                                    POISSON_RES, 0.0)):
         raise AssertionError("Poisson: a repeated chi field differs")
     m, d = rows.shape
-    rec = {
-        "ms": median_ms(lambda: segsum_kernel.segment_sum_sorted(
-            sorted_ids, order, rows, n_vox)),
-        "plain_ms": median_ms(lambda: segsum_kernel.segment_sum_plain(
-            sorted_ids, order, rows, n_vox)),
-        "library_ms": median_ms(lambda: torch.zeros(
-            (n_vox, d), device=dev).index_add_(0, ids.long(), rows)),
-        "sort_ms": median_ms(lambda: torch.sort(ids, stable=True)),
-        "bound": segsum_bound(m, d, n_vox),
-    }
     say(f"kernel 4 at the Poisson splat (M={m}, D={d}, n={n_vox}): "
-        f"bit-identical to its plain version, repeat bit-identical; kernel "
-        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, index_add_ "
-        f"{rec['library_ms']:.4f} ms, stable sort {rec['sort_ms']:.4f} ms, "
-        f"bound {rec['bound'][0]:.4f} ms by {rec['bound'][1]} (median of "
-        f"{REPS}); chi {tuple(chi.shape)} repeated bit-identical")
+        f"bit-identical to its plain version, repeat bit-identical; chi "
+        f"{tuple(chi.shape)} repeated bit-identical")
     del pts_t, nrm_t, ids, rows, sorted_ids, order, chi
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     decoder = decoder_lib.decoder_from_numpy(
@@ -2813,40 +2432,6 @@ def write_tower_weights(directory, dev, clip=CLIP_L14_336, dino=DINOV2_S14,
     return out
 
 
-def vit_flops(tokens, dim, blocks, attended=None):
-    """Multiply-adds x 2 of ``blocks`` pre-norm ViT blocks (MLP ratio 4)
-    over ``tokens``: 24 T D^2 for the products, 4 T_a^2 D / (T / T_a) for
-    attention over groups of ``attended`` tokens (windows; all by
-    default)."""
-    attended = attended or tokens
-    return blocks * (24 * tokens * dim ** 2 + 4 * tokens * attended * dim)
-
-
-def clip_block_layers(params, x, heads):
-    """Card ms of the pieces of CLIP's first visual block on tokens ``x``
-    [T, D] (median of REPS): the q/k/v products, the scores, the softmax,
-    the weighted sum, the output product, the MLP, the LayerNorms."""
-    p, pre = params, "visual.blocks.0"
-    t, d = x.shape
-    hd = d // heads
-    q = (x @ p[f"{pre}.attn.wq"]).reshape(t, heads, hd).transpose(0, 1)
-    att = torch.softmax(q @ q.transpose(-1, -2) / math.sqrt(hd), dim=-1)
-    return {
-        "layer norms (2)": 2 * median_ms(lambda: vit.layer_norm(
-            x, p[f"{pre}.ln1.scale"], p[f"{pre}.ln1.bias"], 1e-5)),
-        "q, k, v products": 3 * median_ms(
-            lambda: x @ p[f"{pre}.attn.wq"] + p[f"{pre}.attn.bq"]),
-        "scores q kT": median_ms(lambda: q @ q.transpose(-1, -2)),
-        "softmax": median_ms(lambda: torch.softmax(att, dim=-1)),
-        "weighted sum": median_ms(lambda: att @ q),
-        "output product": median_ms(
-            lambda: x @ p[f"{pre}.attn.wo"] + p[f"{pre}.attn.bo"]),
-        "MLP (two products, QuickGELU)": median_ms(lambda: vit.quick_gelu(
-            x @ p[f"{pre}.mlp.w1"] + p[f"{pre}.mlp.b1"]) @ p[f"{pre}.mlp.w2"]),
-        "whole block": median_ms(lambda: vit.clip_block(x, p, 0, heads)),
-    }
-
-
 def rel_err(got, ref):
     """max |got - ref| / max |ref| of a card tensor against a CPU one."""
     ref = ref.float()
@@ -2867,37 +2452,12 @@ def seeded_tokens(seed, length=9):
     return out
 
 
-def tower_times(extractor, images):
-    """Host ms of each image through one extractor (synchronised)."""
-    out = []
-    for img in images:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        extractor(img.astype(np.float32) / 255.0)
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-def host_ms(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 def segment_and_group(seg, views, metas, n):
     """Every view through ``GroupingClassifier.associate`` (segmentation,
     composite, front-most Gaussians, bank matching): the matched-label
-    masks, the classifier and the host ms per view."""
+    masks and the classifier."""
     gc = grouping.GroupingClassifier(n, segmentation=seg)
-    matched, ms = [], []
-    for img, meta in zip(views, metas):
-        m, t = host_ms(lambda: gc.associate(img, meta))
-        matched.append(m)
-        ms.append(t)
-    return matched, gc, ms
+    return [gc.associate(img, meta) for img, meta in zip(views, metas)], gc
 
 
 @contextlib.contextmanager
@@ -2910,13 +2470,11 @@ def tower_weights(dev):
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_towers_"))
     env = os.environ.get("COLLAB_SPLATS_WEIGHTS")
     try:
-        t0 = time.perf_counter()
         weights = write_tower_weights(tmp, dev)
         say("tower weights (seeded, the converters' layouts, released "
             "shapes): " + ", ".join(
                 f"{name} {count / 1e6:.1f}M parameters"
-                for name, (_, count) in weights.items())
-            + f"; written in {time.perf_counter() - t0:.1f} s")
+                for name, (_, count) in weights.items()))
         os.environ["COLLAB_SPLATS_WEIGHTS"] = str(tmp)
         extractors._default_extractor.cache_clear()
         yield tmp, weights
@@ -2955,8 +2513,7 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     # 1. Extraction, cached.
-    dm, extract_ms = host_ms(lambda: feature_dm.FeatureDatamanager(
-        base, fcfg, device=dev))
+    dm = feature_dm.FeatureDatamanager(base, fcfg, device=dev)
     extract_peak = torch.cuda.max_memory_allocated()
     for name, ext in dm._extractors.items():
         if not (ext.pretrained and ext.device.type == dev.type):
@@ -2968,11 +2525,10 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
     tr = feature_trainer(data, dev, refine_every=10 ** 6,
                          feature_dims=dims)
     start = tr.state()
-    hist, step_ms = [], []
+    hist = []
     for _ in range(TOWER_STEPS):
-        _, t = host_ms(lambda: tr.train(1, log_every=10 ** 9))
+        tr.train(1, log_every=10 ** 9)
         hist.append(tr.history[-1])
-        step_ms.append(t)
     # 3. The text query: path 7's mesh vertices, a rendered view.
     clip = dm.text_encoder()
     tokens = torch.stack([seeded_tokens(s) for s in (1, 2)]).to(dev)
@@ -3012,8 +2568,7 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
                                           training=False)
             metas.append(meta)
             views.append(uint8_image(o["rgb"]))
-    matched, gc, group_ms = segment_and_group(seg, views, metas,
-                                              GROUPING_GAUSSIANS)
+    matched, gc = segment_and_group(seg, views, metas, GROUPING_GAUSSIANS)
     labels = gc.gaussian_labels()
     torch.cuda.synchronize()
     launches = counts()
@@ -3038,8 +2593,7 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
                 raise AssertionError(f"{name} map {i}: "
                                      f"{tuple(fm[name].shape)}, want {shape}")
     cache_files = sorted((tmp / "cache").iterdir())
-    dm_read, read_ms = host_ms(lambda: feature_dm.FeatureDatamanager(
-        base, fcfg, device=dev))
+    dm_read = feature_dm.FeatureDatamanager(base, fcfg, device=dev)
     for a, b in zip(dm.train_features, dm_read.train_features):
         for name in a:
             if not torch.equal(a[name], b[name]):
@@ -3060,37 +2614,18 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
             raise AssertionError(f"grouping view {i}: mask {m.shape}")
     if labels.shape != (GROUPING_GAUSSIANS,):
         raise AssertionError("grouping: label shape")
-    ext_ms = {name: tower_times(ext, images)
-              for name, ext in dm._extractors.items()}
-    tokens_per, flops = {}, {}
-    for name, ext in dm._extractors.items():
-        _, ph, pw = extractors._prep_image(
-            images[0], ext.resolution, ext.patch_size, ext.mean, ext.std,
-            dev)
-        tokens_per[name] = ph * pw + 1
-        pre = "visual." if name == "clip-vit" else ""
-        flops[name] = vit_flops(
-            tokens_per[name], ext.params[f"{pre}patch_embed.w"].shape[1],
-            int(ext.params[f"{pre}n_blocks"]))
     say(f"main path 8 (feature towers, released shapes, weights through "
         f"their npz files): FeatureDatamanager over {len(images)} images "
         f"at {images[0].shape[1]}x{images[0].shape[0]}, maps "
         + ", ".join(f"{k} {v}" for k, v in dm.feature_dims.items())
-        + f"; extraction {extract_ms:.1f} ms with the cache write, read "
-        f"back bit-identical in {read_ms:.1f} ms ({cache_files[0].name}, "
-        f"{cache_files[0].stat().st_size / 2 ** 20:.1f} MiB); per image "
-        + "; ".join(f"{k} ({tokens_per[k]} tokens, {flops[k] / 1e12:.3f} "
-                    f"TFLOP) median {statistics.median(v):.2f} ms (min "
-                    f"{min(v):.2f}, max {max(v):.2f}; "
-                    f"{flops[k] / statistics.median(v) / 1e9:.1f} TFLOP/s)"
-                    for k, v in ext_ms.items())
-        + f"; peak device memory {extract_peak / 2 ** 30:.2f} GiB in the "
-        f"extraction, {path_peak / 2 ** 30:.2f} GiB in the path; launches "
+        + f"; the cache read back bit-identical ({cache_files[0].name}, "
+        f"{cache_files[0].stat().st_size / 2 ** 20:.1f} MiB); peak device "
+        f"memory {extract_peak / 2 ** 30:.2f} GiB in the extraction, "
+        f"{path_peak / 2 ** 30:.2f} GiB in the path; launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     say(f"path 8 training: {n_steps} rade-features steps (xla) on the "
         f"extracted maps, losses " + ", ".join(
-            f"{h['loss']:.5f}" for h in hist)
-        + f"; step median {statistics.median(step_ms):.2f} ms (host clock)")
+            f"{h['loss']:.5f}" for h in hist))
     say(f"path 8 query: the CLIP text tower "
         f"({int(clip.params['text.n_blocks'])} blocks, width "
         f"{clip.params['text.ln_final.scale'].shape[0]}) on two "
@@ -3102,58 +2637,17 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
         f"{tuple(smap.shape)} in [{float(smap.min()):.4f}, "
         f"{float(smap.max()):.4f}]")
 
-    # The CLIP tower's first block, piece by piece, at the extraction's
-    # 2,994 tokens.
-    with torch.no_grad():
-        ext = dm._extractors["clip-vit"]
-        img, ph, pw = extractors._prep_image(
-            images[0].astype(np.float32) / 255.0, ext.resolution,
-            ext.patch_size, ext.mean, ext.std, dev)
-        x = torch.cat([ext.params["visual.class_embedding"][None],
-                       vit.patchify(img, ext.patch_size)
-                       @ ext.params["visual.patch_embed.w"]])
-        pieces = clip_block_layers(ext.params, x, ext.num_heads)
-        del x, img
-    say(f"path 8 CLIP block 0 at {ph * pw + 1} tokens (card, median of "
-        f"{REPS}, ms): " + ", ".join(f"{k} {v:.4f}"
-                                     for k, v in pieces.items()))
-
-    # Stage times of segmentation (outside the counted run).
-    _, det_ms = host_ms(lambda: det(views[0]))
-    boxes, confs = det(views[0])
-    _, enc_ms = host_ms(lambda: sam.set_image(views[0]))
-    sam_dim = sam.params["enc.patch_embed.b"].shape[0]
-    n_glob = len(sam.params["enc.global_blocks"])
-    n_win = int(sam.params["enc.n_blocks"]) - n_glob
-    enc_flops = (vit_flops(25 * 196, sam_dim, n_win, attended=196)
-                 + vit_flops(4096, sam_dim, n_glob))
-    _, dec_ms = host_ms(lambda: sam.predict_boxes(boxes[:64]))
-    results, seg_ms = host_ms(lambda: seg.auto_segment_image(views[0]))
-    comp, comp_ms = host_ms(lambda: segmentation.create_composite_mask(
-        results, 0.85))
-    _, group0_ms = host_ms(lambda: grouping.GroupingClassifier(
-        GROUPING_GAUSSIANS, segmentation=seg).associate(
-            views[0], metas[0], composite_mask=comp))
     n_masks = [int(m.max()) for m in matched]
     say(f"path 8 segmentation and grouping: {len(views)} views at "
         f"{views[0].shape[1]}x{views[0].shape[0]}, YOLOv8x boxes then SAM "
-        f"ViT-B masks (object_segment_image); view 0: detector "
-        f"{det_ms:.2f} ms ({len(boxes)} boxes after NMS), encoder "
-        f"{enc_ms:.2f} ms ({enc_flops / 1e12:.3f} TFLOP in its blocks, "
-        f"{enc_flops / enc_ms / 1e9:.1f} TFLOP/s), decoder and postprocess "
-        f"of 64 boxes "
-        f"{dec_ms:.2f} ms (host clock); auto_segment_image {seg_ms:.0f} ms "
-        f"({len(results)} masks), create_composite_mask {comp_ms:.0f} ms, "
-        f"the grouping given the composite {group0_ms:.0f} ms; associate "
-        f"per view "
-        + ", ".join(f"{t:.0f}" for t in group_ms)
-        + f" ms; matched objects per view {n_masks}, {gc.num_objects} "
-        f"objects in the bank, {int((labels >= 0).sum())} of "
-        f"{GROUPING_GAUSSIANS} Gaussians labelled")
+        f"ViT-B masks (object_segment_image), prompt batches "
+        f"{prompt_batches}; matched objects per view {n_masks}, "
+        f"{gc.num_objects} objects in the bank, {int((labels >= 0).sum())} "
+        f"of {GROUPING_GAUSSIANS} Gaussians labelled")
 
     # Every kernel of the step on its own inputs.
     tr.load_state(start)
-    _, kin = train_layer_times(tr)
+    kin = train_step_inputs(tr)
     tr.load_state(start)
     errs = check_step_kernels(kin, False, "path 8 rade-features step",
                               tr.config.model.render.stop_threshold)
@@ -3168,8 +2662,7 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
         for name in a:
             if not torch.equal(a[name], b[name]):
                 raise AssertionError(f"repeated extraction: {name} differs")
-    matched2, gc2, _ = segment_and_group(seg, views, metas,
-                                         GROUPING_GAUSSIANS)
+    matched2, gc2 = segment_and_group(seg, views, metas, GROUPING_GAUSSIANS)
     if not all(np.array_equal(a, b) for a, b in zip(matched, matched2)) or \
             not np.array_equal(gc.votes, gc2.votes) or \
             not np.array_equal(labels, gc2.gaussian_labels()):
@@ -3250,7 +2743,6 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
 OPTIONS_STEPS = 12
 OPTIONS_REG_FROM = 4
 OPTIONS_EVAL_EVERY = 4
-PLAIN_STEPS = 6          # steps of the same trainer without the options
 VGG16_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512,
                 512)
 VGG16_STAGE_ENDS = (1, 3, 6, 9, 12)
@@ -3276,19 +2768,6 @@ def write_vgg16_weights(directory, dev):
     arrays = to_numpy(out)
     np.savez(Path(directory) / "vgg16_lpips.npz", **arrays)
     return sum(a.size for a in arrays.values())
-
-
-def vgg16_flops(height, width):
-    """Multiply-adds x 2 of VGG16's thirteen 3x3 convolutions on one
-    image: 2 * 9 * H * W * C_in * C_out per convolution, the size halved
-    after each of the first four stages."""
-    flops, cin, h, w = 0, 3, height, width
-    for j, cout in enumerate(VGG16_WIDTHS):
-        flops += 2 * 9 * h * w * cin * cout
-        cin = cout
-        if j in VGG16_STAGE_ENDS[:4]:
-            h, w = h // 2, w // 2
-    return flops
 
 
 def options_trainer(model, cams, images, init, alive, dev, options=True,
@@ -3353,12 +2832,9 @@ def options_path(dev, weights_dir):
     (budget 0), all with every launch count at 0 just before and read
     just after.  Then the same twelve steps cached on the card (the same
     bits), every kernel of a step on its own inputs, a repeated step,
-    ``render_tiled_batch`` against single
-    renders, the writers' files read back, and each layer's time.  Returns
-    the launches and the kernels' errors."""
+    ``render_tiled_batch`` against single renders and the writers' files
+    read back.  Returns the launches and the kernels' errors."""
     from collab_splats_tpu_torch.core.cameras import stack_cameras
-    from collab_splats_tpu_torch.train import bilateral
-    from collab_splats_tpu_torch.train import camera_opt
     from collab_splats_tpu_torch.utils import lpips, writers
 
     n_vgg = write_vgg16_weights(weights_dir, dev)
@@ -3382,14 +2858,12 @@ def options_path(dev, weights_dir):
         if not (tr.streaming and tr.images[0].is_pinned()):
             raise AssertionError("path 9: budget 0 did not stream the "
                                  "frames from pinned host memory")
-        hist, step_ms = [], []
+        hist = []
         reset_counts()
         for _ in range(OPTIONS_STEPS):
-            _, t = host_ms(lambda: tr.train(
-                1, log_every=10 ** 9, eval_cameras=cams,
-                eval_images=images))
+            tr.train(1, log_every=10 ** 9, eval_cameras=cams,
+                     eval_images=images)
             hist.append(tr.history[-1])
-            step_ms.append(t)
         launches = counts()
         for w in sinks:
             w.close()
@@ -3430,7 +2904,6 @@ def options_path(dev, weights_dir):
                       OPTIONS_EVAL_EVERY)):
             raise AssertionError("path 9: the event file lacks steps")
         streamed = tr.state()
-        copy_ms = median_ms(lambda: tr.images[1].to(dev, non_blocking=True))
         pose = tr.camera_params["camera_opt"].detach()
         grid = tr.camera_params["bilateral_grid"].detach()
         check_determinism(tr)
@@ -3443,16 +2916,11 @@ def options_path(dev, weights_dir):
     tr = options_trainer(model, cams, images, init, ialive, dev,
                          budget=4 << 30)
     kin = step_kernel_inputs(tr)
-    cached_ms = []
-    for _ in range(OPTIONS_STEPS):
-        _, t = host_ms(lambda: tr.train(1, log_every=10 ** 9))
-        cached_ms.append(t)
+    tr.train(OPTIONS_STEPS, log_every=10 ** 9)
     diff = same_trainer_state(streamed, tr.state())
     if diff:
         raise AssertionError(f"path 9: the streamed run and the cached run "
                              f"differ in {diff[:8]}")
-    step_trace = traced_totals(lambda: tr.train(1, log_every=10 ** 9),
-                               reps=2)
     say(f"main path 9 (trainer options): {OPTIONS_STEPS} steps of the bench "
         f"training scene (1M Gaussians at capacity {ialive.shape[0]}, "
         f"1280x720, sh_degree 3, random background) with camera_opt "
@@ -3483,86 +2951,8 @@ def options_path(dev, weights_dir):
                 if not torch.equal(a[i], b):
                     raise AssertionError(f"render_tiled_batch camera {i}: "
                                          f"{name} differs")
-        batch_ms = median_ms(lambda: rasterize.render_tiled_batch(
-            *args, stack_cameras(cams), model.render), host_clock=True)
-    del batch
-
-    # Each layer of the options, alone on the card.
-    cam, delta = cams[0], pose[0]
-    rows = (p["means"].detach(), p["quats"].detach(),
-            gaussians.activated_scales(p).detach())
-    n_rows = rows[0].shape[0]
-    ct1 = torch.randn((n_rows, 2), generator=torch.Generator(
-        device=dev).manual_seed(5), device=dev)
-    ct2 = torch.randn((n_rows, 3), generator=torch.Generator(
-        device=dev).manual_seed(6), device=dev)
-
-    def pose_term():
-        d = delta.clone().requires_grad_(True)
-        c = camera_opt.apply_pose_adjustment(cam, d)
-        pj = projection.project(*rows, c.viewmat(), c.K, c.width, c.height)
-        out = torch.sum(pj.mean2d * ct1) + torch.sum(pj.conic * ct2)
-        return torch.autograd.grad(out, [d])
-
-    rgb = images[0]
-    g0 = grid[0].clone().requires_grad_(True)
-    ct3 = torch.randn(rgb.shape, generator=torch.Generator(
-        device=dev).manual_seed(7), device=dev)
-
-    def grid_fwd():
-        return (bilateral.apply_bilateral_grid(g0, rgb),
-                bilateral.total_variation_loss(grid))
-
-    def grid_fwd_bwd():
-        out, tv = grid_fwd()
-        return torch.autograd.grad(torch.sum(out * ct3) + tv, [g0])
-
-    grid_trace = traced_totals(grid_fwd_bwd)
-    layers = {
-        "pose term (exp_so3, c2w, viewmat, and kernel 7 forward and "
-        "backward with the camera's gradient over the capacity)":
-            median_ms(pose_term),
-        "bilateral slice + apply + TV, forward": median_ms(grid_fwd),
-        "bilateral forward + backward": median_ms(grid_fwd_bwd),
-        "streamed frame copy (pinned host to card, 1280x720x3 float32)":
-            copy_ms,
-        "LPIPS per eval image (host clock)": median_ms(
-            lambda: lpips.lpips(rgb, images[1]), host_clock=True, reps=5),
-        "render_tiled_batch of 4 cameras (host clock)": batch_ms,
-    }
-    del tr
+    del batch, tr
     torch.cuda.empty_cache()
-
-    # The same trainer without the options, cached, for the step time.
-    tr = options_trainer(model, cams, images, init, ialive, dev,
-                         options=False, budget=4 << 30)
-    plain_ms = []
-    for _ in range(PLAIN_STEPS):
-        _, t = host_ms(lambda: tr.train(1, log_every=10 ** 9))
-        plain_ms.append(t)
-    del tr
-    torch.cuda.empty_cache()
-    lp_flops = vgg16_flops(720, 1280) * 2
-    lp_ms = layers["LPIPS per eval image (host clock)"]
-    nonevals = [t for i, t in enumerate(step_ms)
-                if (i + 1) % OPTIONS_EVAL_EVERY]
-    eval_ms = [round(t, 4) for i, t in enumerate(step_ms)
-               if (i + 1) % OPTIONS_EVAL_EVERY == 0]
-    say("path 9 layers (median of 10 CUDA-event timings unless marked, "
-        "ms): " + "; ".join(f"{k} {v:.4f}" for k, v in layers.items())
-        + f"; LPIPS work {lp_flops / 1e12:.3f} TFLOP a pair (VGG16 at "
-        f"1280x720, float32), {lp_flops / lp_ms / 1e9:.1f} TFLOP/s")
-    say_totals("path 9 bilateral slice + apply + TV, forward and backward "
-               "(1280x720, grid 8x16x16x12)", grid_trace, say)
-    say_totals("path 9 options step, cached", step_trace, say)
-    say(f"path 9 step (host clock, median (min, max)): options streamed "
-        f"{statistics.median(nonevals):.4f} ({min(nonevals):.4f}, "
-        f"{max(nonevals):.4f}) over the {len(nonevals)} steps without an "
-        f"eval, eval steps {eval_ms}; "
-        f"options cached {statistics.median(cached_ms):.4f} "
-        f"({min(cached_ms):.4f}, {max(cached_ms):.4f}); no options, cached "
-        f"{statistics.median(plain_ms):.4f} ({min(plain_ms):.4f}, "
-        f"{max(plain_ms):.4f}) over {PLAIN_STEPS}")
     return {"launches": launches, "errs": errs}
 
 
@@ -3576,28 +2966,6 @@ PIPE_POINTS = 262_144
 PIPE_CAPACITY = 1_048_576
 PIPE_FIRST, PIPE_STEPS = 10, 20
 PIPE_FEATURE_STEPS = 12
-VIEWER_REQUESTS = 5
-
-
-@contextlib.contextmanager
-def timed(owner, name, out):
-    """Host ms of every call of ``owner.name`` inside the block, each
-    between two synchronises."""
-    real = getattr(owner, name)
-
-    def call(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = real(*args, **kwargs)
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-        return result
-
-    setattr(owner, name, call)
-    try:
-        yield out
-    finally:
-        setattr(owner, name, real)
 
 
 def pipeline_path(dev):
@@ -3624,15 +2992,13 @@ def _pipeline_path(dev, root):
     from collab_splats_tpu_torch.pipeline import cli
     from collab_splats_tpu_torch.pipeline.splatter import Splatter
 
-    stages = {}
     reset_counts()
     # 1. The dataset: the bench scene rendered through the PNG codec.
     params, alive, _, cfg = make_scene("bench", dev)
-    (_, _, cams), t = host_ms(lambda: synthetic.write_synthetic_dataset(
+    _, _, cams = synthetic.write_synthetic_dataset(
         root / "input", n_cams=PIPE_CAMS, width=PIPE_WIDTH,
         height=PIPE_HEIGHT, scene=(params, alive), model_config=cfg,
-        device=dev))
-    stages["dataset write (10 renders, PNG, PLY)"] = t
+        device=dev)
     # SfM gives a sparse cloud: keep the first PIPE_POINTS points.
     ply = read_ply(str(root / "input" / "sparse.ply"))
     write_ply(str(root / "input" / "sparse.ply"),
@@ -3664,21 +3030,16 @@ def _pipeline_path(dev, root):
     a = splatter("a")
     a.preprocess()
     before = counts()
-    step_ms, restore_ms = [], []
-    with timed(Trainer, "train_one_step", step_ms), \
-            timed(Trainer, "restore", restore_ms):
-        with captured(tiles, "decode_bin_keys", 1) as dec, \
-                captured(batched, "composite_batched_fwd", 1) as fwd, \
-                captured(batched, "composite_batched_bwd", 1) as bwd, \
-                captured(segsum, "segment_sum_sorted", 2) as seg:
-            _, t_first = host_ms(lambda: a.train(max_iterations=PIPE_FIRST,
-                                                 **train_kw))
-        a._loaded = None
-        _, t_resume = host_ms(lambda: a.train(max_iterations=PIPE_STEPS,
-                                              **train_kw))
-        b = splatter("b")
-        b.preprocess()
-        b.train(max_iterations=PIPE_STEPS, **train_kw)
+    with captured(tiles, "decode_bin_keys", 1) as dec, \
+            captured(batched, "composite_batched_fwd", 1) as fwd, \
+            captured(batched, "composite_batched_bwd", 1) as bwd, \
+            captured(segsum, "segment_sum_sorted", 2) as seg:
+        a.train(max_iterations=PIPE_FIRST, **train_kw)
+    a._loaded = None
+    a.train(max_iterations=PIPE_STEPS, **train_kw)
+    b = splatter("b")
+    b.preprocess()
+    b.train(max_iterations=PIPE_STEPS, **train_kw)
     train_launches = {k: v - before[k] for k, v in counts().items()}
     kin = {"decode_args": detached(dec[0]), "fwd_args": detached(fwd[0]),
            "bwd_args": detached(bwd[0]), "step_segsum_args": detached(seg)}
@@ -3700,11 +3061,6 @@ def _pipeline_path(dev, root):
     if diff or not torch.equal(aa, ab):
         raise AssertionError(f"path 10: the resumed run differs from the "
                              f"uninterrupted one in {diff}")
-    stages["first training step"] = step_ms[0]
-    stages["training step, median"] = statistics.median(step_ms[1:])
-    stages["resume (restore)"] = restore_ms[0]
-    stages["resume (train call: restore, 10 steps, save)"] = t_resume
-    stages["first train call (init, 10 steps, save)"] = t_first
     with uncounted():
         errs = check_step_kernels(kin, False, "pipeline step",
                                   RenderOptions().stop_threshold)
@@ -3712,12 +3068,8 @@ def _pipeline_path(dev, root):
     torch.cuda.empty_cache()
 
     # 3. The mesh, twice: the second call skips.
-    res, t = host_ms(lambda: a.mesh(depth_trunc=MESH_DEPTH_TRUNC,
-                                    align_floor=True))
-    stages["TSDF export (9 cameras)"] = t
-    again, t = host_ms(lambda: a.mesh(depth_trunc=MESH_DEPTH_TRUNC,
-                                      align_floor=True))
-    stages["mesh again (skips)"] = t
+    res = a.mesh(depth_trunc=MESH_DEPTH_TRUNC, align_floor=True)
+    again = a.mesh(depth_trunc=MESH_DEPTH_TRUNC, align_floor=True)
     if not (set(again) <= set(res) and {"vertices", "faces"} <= set(again)
             and np.array_equal(again["vertices"], res["vertices"])
             and np.array_equal(again["faces"], res["faces"])):
@@ -3725,8 +3077,7 @@ def _pipeline_path(dev, root):
                              "keys or arrays")
     # 4. Loading, aligned cameras, the mesh plot.
     a._loaded = None
-    _, t = host_ms(a.load_model)
-    stages["load_model"] = t
+    a.load_model()
     aligned = a.load_aligned_cameras()
     T = torch.as_tensor(res["floor_transform"], dtype=torch.float32,
                         device=dev)
@@ -3735,8 +3086,7 @@ def _pipeline_path(dev, root):
             aligned[0].c2w[:3, 3], T[:3, :3] @ c0[:3, 3] + T[:3, 3],
             atol=1e-5):
         raise AssertionError("path 10: aligned cameras")
-    img, t = host_ms(lambda: a.plot_mesh(output_fn=root / "mesh.png"))
-    stages["plot_mesh (800x600, host)"] = t
+    img = a.plot_mesh(output_fn=root / "mesh.png")
     if img.shape != (600, 800, 3) or not np.isfinite(img).all() or \
             png.read_png(root / "mesh.png").shape != (600, 800, 3):
         raise AssertionError("path 10: plot_mesh")
@@ -3753,18 +3103,8 @@ def _pipeline_path(dev, root):
                     direct.shape != (480, 640, 3):
                 raise AssertionError("path 10: the viewer's PNG is not the "
                                      "direct render")
-            req_ms = []
-            for _ in range(VIEWER_REQUESTS):
-                t0 = time.perf_counter()
-                urllib.request.urlopen(url, timeout=120).read()
-                req_ms.append((time.perf_counter() - t0) * 1e3)
-            render_ms = median_ms(lambda: v.render(0.8, 0.5, 3.0),
-                                  host_clock=True, reps=5)
     finally:
         v.shutdown()
-    stages["viewer request 640x480 (render, PNG, HTTP), median"] = \
-        statistics.median(req_ms)
-    stages["  of which SplatViewer.render"] = render_ms
     n_vertices, n_faces = len(res["vertices"]), len(res["faces"])
     del res, again, aligned, img, a
     torch.cuda.empty_cache()
@@ -3773,22 +3113,12 @@ def _pipeline_path(dev, root):
     # the mesh and a text query.
     f = splatter("f", "rade-features")
     f.preprocess()
-    extract_ms = []
-    with timed(feature_dm.FeatureDatamanager, "_setup_features",
-               extract_ms):
-        _, t = host_ms(lambda: f.train(
-            max_iterations=PIPE_FEATURE_STEPS, capacity=PIPE_CAPACITY,
+    f.train(max_iterations=PIPE_FEATURE_STEPS, capacity=PIPE_CAPACITY,
             num_downscales=0, extractors=("clip-vit", "dinov2"),
-            feature_type="clip-vit", final_resolution=64))
-    stages["feature extraction (9 images, clip-vit and dinov2)"] = \
-        extract_ms[0]
-    stages["rade-features train call (extraction, 12 steps, save)"] = t
-    _, t = host_ms(lambda: f.mesh(depth_trunc=MESH_DEPTH_TRUNC,
-                                  align_floor=True))
-    stages["rade-features TSDF export with latents"] = t
-    sims, t = host_ms(lambda: f.query_mesh(
-        ["red disk"], ["object"], output_fn=root / "query.ply"))
-    stages["query_mesh"] = t
+            feature_type="clip-vit", final_resolution=64)
+    f.mesh(depth_trunc=MESH_DEPTH_TRUNC, align_floor=True)
+    sims = f.query_mesh(["red disk"], ["object"],
+                        output_fn=root / "query.ply")
     with uncounted():
         sims2 = f.query_mesh(["red disk"], ["object"])
     q = read_ply(str(root / "query.ply"))
@@ -3822,8 +3152,6 @@ def _pipeline_path(dev, root):
         f"render; query similarities in [{sims.min():.4f}, "
         f"{sims.max():.4f}] over {len(sims)} vertices, repeat bit-identical; "
         f"the CLI re-run skipped every stage (rc 0)")
-    say("path 10 stages (host clock between synchronises, ms): " + "; ".join(
-        f"{k} {v:.4f}" for k, v in stages.items()))
     return {"launches": launches, "errs": errs}
 
 
@@ -3883,9 +3211,9 @@ def sharded_path(dev):
     with one sharded refine, then ten tile-sharded steps at send_cap =
     shard and two at shard / 8, launch counts per step enforced; the first
     step's loss and gradients against the single-device step, the routed
-    step against the all-gather one, a repeated step's bits, kernels 1-4
-    on both steps' own inputs, and the step times beside the single-device
-    step's.  Returns the launches and the kernels' errors."""
+    step against the all-gather one, a repeated step's bits, and kernels
+    1-4 on both steps' own inputs.  Returns the launches and the kernels'
+    errors."""
     import torch.distributed as dist
 
     from collab_splats_tpu_torch.parallel import mesh as pmesh
@@ -3982,15 +3310,12 @@ def _sharded_path(dev, mesh):
     # Main path 11: all-gather steps with the sharded refine, counted.
     run = ShardedRun(mesh, init, alive)
     ag = make_step(run)
-    hist, ag_ms, first = [], [], None
+    hist, first = [], None
     reset_counts()
     for i in range(SHARDED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, run.strat, m = ag(run.params, run.alive, run.strat,
                              *batches[i % len(batches)], SHARDED_STEP0 + i)
         hist.append(check_metrics(m, f"sharded step {i}"))
-        ag_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             first = run.bits()
         if i + 1 == SHARDED_REFINE_AT:
@@ -4063,26 +3388,7 @@ def _sharded_path(dev, mesh):
     errs = check_step_kernels(kin, False, "sharded step", stop)
     terrs = check_step_kernels(tkin, False, "tile-sharded step", stop)
     errs = {k: max(v, terrs.get(k, 0.0)) for k, v in errs.items()}
-    del kin, tkin
-
-    # Step times (CUDA events, steady state over 2 and 10 steps) beside the
-    # single-device trainer's on the same scene, and a trace.
-    with uncounted():
-        def one(step):
-            return lambda: step(run.params, run.alive, run.strat,
-                                *batches[0], SHARDED_STEP0)
-
-        ag_s = profiling.timed(one(ag))
-        tile_s = profiling.timed(one(tile))
-        trace = traced_totals(one(ag))
-        del run, ag, tile, small
-        torch.cuda.empty_cache()
-        tr = Trainer(TrainerConfig(
-            model=model, max_iterations=1000, seed=0,
-            strategy=strategy.StrategyConfig(warmup_length=10 ** 7)),
-            cams, images, init, alive, device=dev)
-        single_s = profiling.timed(tr.train_one_step)
-        del tr
+    del kin, tkin, run, ag, tile, small
     torch.cuda.empty_cache()
     say(f"main path 11 (multi-device, 1x1 mesh under NCCL at world size "
         f"1): {SHARDED_STEPS} all-gather steps of the bench training scene "
@@ -4099,14 +3405,6 @@ def _sharded_path(dev, mesh):
         + "; spilled " + ", ".join(str(int(h["spilled"])) for h in thist)
         + "; a repeated step gave the same bits (parameters, Adam moments, "
         "statistics)")
-    say(f"path 11 step (host clock, median (min, max) over "
-        f"{SHARDED_STEPS}): all-gather {statistics.median(ag_ms):.4f} "
-        f"({min(ag_ms):.4f}, {max(ag_ms):.4f}, the refine not included); "
-        f"steady state (utils/profiling.timed, CUDA events, (t(10) - t(2)) "
-        f"/ 8, camera 0): all-gather {ag_s * 1e3:.4f} ms, tile-sharded "
-        f"{tile_s * 1e3:.4f} ms, single-device trainer step "
-        f"{single_s * 1e3:.4f} ms")
-    say_totals("path 11 all-gather step", trace, say)
     return {"launches": {k: ag_launches[k] + tile_launches[k]
                          for k in ag_launches}, "errs": errs}
 
@@ -4159,10 +3457,6 @@ def golden_path(dev):
         with uncounted():
             gold = render_golden(*args, None, cam, opts,
                                  project_fn=projection.project)
-            golden_ms = timings(
-                lambda: render_golden(*args, None, cam, opts,
-                                      project_fn=projection.project),
-                host_clock=True, reps=3)
     errs = {}
     for backend, out in tiled.items():
         if int(out.spilled) != 0:
@@ -4178,9 +3472,8 @@ def golden_path(dev):
     cover = float((gold.alpha > 0).float().mean())
     say(f"main path 12 (golden renderer): render_golden of {GOLDEN_N} "
         f"Gaussians at {GOLDEN_SIZE}x{GOLDEN_SIZE} (covered share "
-        f"{cover:.4f}) in {statistics.median(golden_ms):.1f} ms (host "
-        f"clock, median of {len(golden_ms)}); spilled 0 in both tiled "
-        f"renderers; max abs err against it: " + ", ".join(
+        f"{cover:.4f}); spilled 0 in both tiled renderers; max abs err "
+        f"against it: " + ", ".join(
             f"{k} {v:.3g}" for k, v in errs.items()))
 
     # The analytic scene, fitted.
@@ -4188,17 +3481,13 @@ def golden_path(dev):
     acams = synthetic.orbit_cameras(
         ANALYTIC_VIEWS, radius=3.2, width=ANALYTIC_WIDTH,
         height=ANALYTIC_HEIGHT, focal=0.9 * ANALYTIC_WIDTH, device=dev)
-    renders, trace_ms = [], []
-    for c in acams:
-        t0 = time.perf_counter()
-        renders.append(analytic.render_analytic(scene, c))
-        trace_ms.append((time.perf_counter() - t0) * 1e3)
+    renders = [analytic.render_analytic(scene, c) for c in acams]
     cloud = analytic.seed_points_from_views(scene, acams, renders,
                                             ANALYTIC_POINTS, seed=0)
-    (init, ialive), init_ms = host_ms(lambda: gaussians.init_from_points(
+    init, ialive = gaussians.init_from_points(
         cloud["points"], np.clip(cloud["colors"], 0.02, 0.98),
         torch.Generator(device=dev).manual_seed(0), sh_degree=3,
-        device=dev))
+        device=dev)
     images = [torch.from_numpy(r["rgb"]).to(dev) for r in renders]
     model = rade_gs.RadeGSConfig(
         sh_degree=3, sh_degree_interval=100, background="black",
@@ -4218,21 +3507,17 @@ def golden_path(dev):
     before = view_psnr()
     with uncounted():
         kin = step_kernel_inputs(tr)
-    t0 = time.perf_counter()
     for _ in range(ANALYTIC_STEPS):
         last = tr.train_one_step()
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
     after = view_psnr()
     gain = statistics.mean(after) - statistics.mean(before)
     say(f"main path 12 (analytic fit): default_scene(seed=7), "
         f"{ANALYTIC_VIEWS} views at {ANALYTIC_WIDTH}x{ANALYTIC_HEIGHT} "
-        f"ray-traced on the host in {statistics.median(trace_ms):.1f} ms a "
-        f"view (median), {ANALYTIC_POINTS} seed points, init_from_points "
-        f"{init_ms:.1f} ms; {ANALYTIC_STEPS} steps in {fit_s:.2f} s, last "
-        f"loss {last['loss']:.5f}, {last['num_gaussians']} Gaussians; mean "
-        f"training-view PSNR {statistics.mean(before):.2f} -> "
-        f"{statistics.mean(after):.2f} dB ({gain:+.2f})")
+        f"ray-traced on the host, {ANALYTIC_POINTS} seed points; "
+        f"{ANALYTIC_STEPS} steps, last loss {last['loss']:.5f}, "
+        f"{last['num_gaussians']} Gaussians; mean training-view PSNR "
+        f"{statistics.mean(before):.2f} -> {statistics.mean(after):.2f} dB "
+        f"({gain:+.2f})")
     if not gain >= 3.0:
         raise AssertionError(f"analytic fit: PSNR rose by {gain:.2f} dB")
     launches = counts()
@@ -4247,24 +3532,16 @@ def golden_path(dev):
     if launches != want:
         raise AssertionError(f"path 12: launches {launches}, expected "
                              f"{want}")
-    # One fit step traced, then the trainer's state put back.
-    with uncounted():
-        snap = tr.state()
-        trace = traced_totals(tr.train_one_step)
-        tr.load_state(snap)
-        del tr.history[-4:], snap
-    say_totals("path 12 analytic fit step", trace, say)
 
     # The TSDF mesh against the true surfaces (printed, no gate).
     ex = exporters.TSDFFusionExporter(
         tr.params, tr.alive, model, exporters.TSDFExporterConfig(
             voxel_size=0.02, sdf_trunc=0.06, depth_trunc=12.0, max_dim=256,
             align_floor=False, min_component_fraction=0.0))
-    res, mesh_ms = host_ms(lambda: ex.main(acams))
-    verts = res["vertices"]
+    verts = ex.main(acams)["vertices"]
     surface = analytic.sample_gt_surface(scene, 200_000, seed=0)
     say(f"path 12 TSDF mesh of the fit ({ANALYTIC_VIEWS} views, voxel "
-        f"0.02, max_dim 256): {len(verts)} vertices in {mesh_ms:.0f} ms; "
+        f"0.02, max_dim 256): {len(verts)} vertices; "
         f"accuracy (90th percentile distance to the true surface) "
         f"{calculate_accuracy(verts, surface):.4f}, completeness (share of "
         f"true-surface samples within 0.05) "
@@ -4323,21 +3600,8 @@ def counted_leg(what, want_fn, fn):
     return out, got
 
 
-def spread(ms):
-    q = statistics.quantiles(ms, n=10)
-    return (f"median {statistics.median(ms):.4f} ms (p10 {q[0]:.4f}, p90 "
-            f"{q[-1]:.4f}, min {min(ms):.4f}, max {max(ms):.4f}, "
-            f"{len(ms)} steps)")
-
-
 def history_rows(path):
     return [json.loads(ln) for ln in path.read_text().splitlines()]
-
-
-def stage_totals(times):
-    """'name total s (calls)' for each stage that ran."""
-    return "; ".join(f"{k} {sum(t):.4f} s ({len(t)})"
-                     for k, t in times.items())
 
 
 def scale_path(dev):
@@ -4362,7 +3626,7 @@ def scale_path(dev):
     flags = SCALE_FLAGS + ["--steps", str(SCALE_STEPS), "--out",
                            str(run_dir)]
     args = scale_train.parse_args(flags)
-    frames, trace_ms = host_ms(lambda: scale_train.make_frames(args, dev))
+    frames = scale_train.make_frames(args, dev)
 
     def quiet(_):
         """The scripts' progress lines; path 13 prints its own."""
@@ -4396,16 +3660,10 @@ def scale_path(dev):
     if not summ["final_psnr_mean"] > psnrs[0]:
         raise AssertionError(f"path 13: eval PSNR {psnrs[0]:.2f} -> final "
                              f"{summ['final_psnr_mean']:.2f} dB")
-    ms, r, g = res.step_ms, args.res_schedule, args.reg_from
     say(f"main path 13 (scale_train, {args.width}x{args.height}, "
-        f"{len(frames.cameras)} ray-traced views in {trace_ms / 1e3:.1f} s, "
-        f"{args.seed_points} seeds, capacity {args.capacity}, "
-        f"{SCALE_STEPS} steps): launches {main_launches}; step (CUDA "
-        f"events) {spread(ms)}; at downscale 4 "
-        f"{statistics.median(ms[:r]):.4f}, 2 "
-        f"{statistics.median(ms[r:2 * r]):.4f}, 1 "
-        f"{statistics.median(ms[2 * r:g]):.4f}, 1 with depth-normal "
-        f"{statistics.median(ms[g:]):.4f} ms (medians)")
+        f"{len(frames.cameras)} ray-traced views, {args.seed_points} seeds, "
+        f"capacity {args.capacity}, {SCALE_STEPS} steps): launches "
+        f"{main_launches}")
     say("path 13 evals (step: 8-view PSNR dB / SSIM / N): " + ", ".join(
         f"{e['step']}: {e['eval_psnr']:.2f} / {e['eval_ssim']:.4f} / "
         f"{e['num_gaussians']}" for e in res.evals)
@@ -4415,19 +3673,6 @@ def scale_path(dev):
         f"{summ['max_spill_seen']}, non-finite steps "
         f"{summ['nonfinite_grad_steps']}, {len(refines)} refines, "
         f"depth-normal from step {int(reg[0])}")
-    wall = [h["wall_s"] * 1e3 for h in hist]
-    outside = (summ["wall_clock_s"] - sum(res.eval_s) - sum(res.save_s)
-               ) * 1e3 - sum(wall)
-    say(f"path 13 loop: step on the host clock median "
-        f"{statistics.median(wall):.4f} ms (CUDA events "
-        f"{statistics.median(ms):.4f}); outside the steps, evals and saves "
-        f"(history rows, the final eval) {outside / len(wall):.4f} ms a "
-        f"step")
-    say(f"path 13 stages (host clock): eval of 8 views "
-        f"{statistics.median(res.eval_s) * 1e3:.1f} ms (median of "
-        f"{len(res.eval_s)}), checkpoint save "
-        f"{statistics.median(res.save_s):.2f} s (median of "
-        f"{len(res.save_s)}), whole run {summ['wall_clock_s']:.1f} s")
     del res
     torch.cuda.empty_cache()
 
@@ -4454,32 +3699,20 @@ def scale_path(dev):
     say(f"path 13 resume: a fresh trainer from step {SCALE_RESUME_FROM} "
         f"stopped after {SCALE_KILL_AT} (launches {resume_launches}): "
         f"{steps} rows bit-identical to the first run's (every key but "
-        f"wall_s), across the depth-normal flip at {args.reg_from}; step "
-        f"(CUDA events) "
-        f"{spread(rres.step_ms)}")
+        f"wall_s), across the depth-normal flip at {args.reg_from}")
     tr = rres.trainer
     with uncounted():
         kin = step_kernel_inputs(tr)
-        # One step traced (the card's busy and idle time), then the
-        # trainer's state put back.
-        snap = tr.state()
-        trace = traced_totals(tr.train_one_step)
-        tr.load_state(snap)
-        del tr.history[-4:], snap
-    say_totals("path 13 at-scale step (step 2401, depth-normal on)",
-               trace, say)
     errs = check_step_kernels(kin, False, "path 13 at-scale step",
                               tr.config.model.render.stop_threshold)
     del rres, tr, kin
     torch.cuda.empty_cache()
 
     # The step-3,000 checkpoint meshed against the true surfaces.
-    mesh_stages = {}
     mesh_ckpt = run_dir / f"step-{SCALE_MESH_AT:08d}.ckpt.npz"
-    (payload, mesh_ms), mesh_launches = counted_leg(
+    payload, mesh_launches = counted_leg(
         "mesh eval", lambda _: scale_launches(0, 32),
-        lambda: host_ms(lambda: mesh_eval.evaluate_mesh(
-            mesh_ckpt, device=dev, stage_times=mesh_stages)))
+        lambda: mesh_eval.evaluate_mesh(mesh_ckpt, device=dev))
     if not (payload["n_vertices"] > 0
             and math.isfinite(payload["accuracy_p90"])):
         raise AssertionError(f"path 13 mesh eval: {payload}")
@@ -4487,8 +3720,7 @@ def scale_path(dev):
         f"{payload['voxel_size']}): "
         f"{payload['n_vertices']} vertices, accuracy p90 "
         f"{payload['accuracy_p90']:.4f}, completeness "
-        f"{payload['completeness_pct']:.2f}% in {mesh_ms / 1e3:.2f} s ("
-        + stage_totals(mesh_stages) + ")")
+        f"{payload['completeness_pct']:.2f}%")
 
     # The rade-features leg on the same frames, then the chain.
     fargs = scale_train.parse_args(SCALE_FLAGS + [
@@ -4509,17 +3741,14 @@ def scale_path(dev):
                              f"{floss[:3]} ... {floss[-3:]}")
     say(f"path 13 features ({SCALE_FEATURE_STEPS} steps, clip-vit and "
         f"dinov2 maps of the 64 frames, 13 latents): launches "
-        f"{feat_launches}; step (CUDA events) {spread(fres.step_ms)}; "
-        f"final PSNR {fsumm['final_psnr_mean']:.2f} dB; features_loss "
-        f"{head:.6f} -> {tail:.6f} (means of the first and last {q} "
-        f"steps)")
+        f"{feat_launches}; final PSNR {fsumm['final_psnr_mean']:.2f} dB; "
+        f"features_loss {head:.6f} -> {tail:.6f} (means of the first and "
+        f"last {q} steps)")
     del fres
     torch.cuda.empty_cache()
-    chain_stages = {}
-    (stats, chain_ms), chain_launches = counted_leg(
+    stats, chain_launches = counted_leg(
         "feature chain", lambda _: scale_launches(0, 32),
-        lambda: host_ms(lambda: feature_chain_eval.run_chain(
-            feat_dir, device=dev, stage_times=chain_stages)))
+        lambda: feature_chain_eval.run_chain(feat_dir, device=dev))
     if not (stats["n_vertices"] > 0 and stats["latent_dim"] == 13
             and 0.0 <= stats["similarity_min"] <= stats["similarity_max"]
             <= 1.0):
@@ -4527,8 +3756,7 @@ def scale_path(dev):
     say(f"path 13 feature chain (step {stats['step']}): "
         f"{stats['n_vertices']} vertices, similarity min "
         f"{stats['similarity_min']:.4g}, max {stats['similarity_max']:.4g}, "
-        f"mean {stats['similarity_mean']:.4g} in {chain_ms / 1e3:.2f} s ("
-        + stage_totals(chain_stages) + ")")
+        f"mean {stats['similarity_mean']:.4g}")
     shutil.rmtree(SCALE_DIR, ignore_errors=True)
     launches = {k: sum(p[k] for p in (main_launches, resume_launches,
                                       mesh_launches, feat_launches,
@@ -4547,14 +3775,12 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
     logs = build.build_all()
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    say(f"built {sorted(logs) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    say(f"built {sorted(logs) or 'nothing (cached)'}")
 
     scenes = {"flagship": make_scene("flagship", dev),
               "bench": make_scene("bench", dev)}
@@ -4620,13 +3846,13 @@ def main() -> int:
                 f"covered pixel share {cover}")
         del outs
 
-    # The train step's layers and backward kernels, at the main path's
-    # shapes, on the trainer's first state (put back afterwards).
+    # The train step's kernels' inputs, at the main path's shapes, on the
+    # trainer's first state (put back afterwards).
     tr = training_setup(dev)
     start = tr.state()
     seg_errs = [check_segsum_step(tr)]
     tr.step = 3   # every SH band live
-    tlayers, kin = train_layer_times(tr)
+    kin = train_step_inputs(tr)
     tr.load_state(start)
     # Kernel 3 against its plain version on the step's own window rows,
     # mask, banked prefix and the loss's cotangent.
@@ -4638,7 +3864,7 @@ def main() -> int:
 
     # Main path 2, the training step at the bench scene's width.
     refine_at = 2 * REFINE_EVERY
-    hist, step_ms, launches = train_main_path(tr, TRAIN_STEPS, refine_at)
+    hist, launches = train_main_path(tr, TRAIN_STEPS, refine_at)
     check_training(hist, launches, refine_at, REG_FROM, {
         "decode": 1, "composite": 1, "composite_bwd": 1, "segment_sum": 2})
     say(f"main path (training): {len(hist)} steps of the bench scene "
@@ -4653,29 +3879,20 @@ def main() -> int:
         f"{hist[-1]['num_gaussians']}, capacity {tr.alive.shape[0]}; "
         f"opacity reset after step {REFINE_EVERY}; depth-normal loss from "
         f"step {REG_FROM}")
-    say(f"train step (host clock, bench scene): median "
-        f"{statistics.median(step_ms):.4f} ms over {len(step_ms)} steps, min "
-        f"{min(step_ms):.4f}, max {max(step_ms):.4f}")
     check_determinism(tr)
     # Kernel 4 again at the grown capacity of the steps after the refine.
     seg_errs.append(check_segsum_step(tr))
-    refine_ms = refine_times(tr)
-    say(f"refine pass alone (strategy.refine at capacity "
-        f"{tr.alive.shape[0]}, host clock, median of {REPS}): "
-        f"{statistics.median(refine_ms):.4f} ms, min {min(refine_ms):.4f}, "
-        f"max {max(refine_ms):.4f}; the train step that ran the refine took "
-        f"{step_ms[refine_at - 1]:.4f} ms (host clock)")
     fitting_run(dev)
     del tr, start
     torch.cuda.empty_cache()
 
     # Main path 4, the training step with the per-tile compositor, at the
-    # same width; its layers and kernel 6's inputs first, on the trainer's
-    # first state.
+    # same width; kernels 5's and 6's inputs first, on the trainer's first
+    # state.
     tr = training_setup(dev, "pallas", PALLAS_REFINE_EVERY, PALLAS_REG_FROM)
     start = tr.state()
     tr.step = 3
-    player, pkin = train_layer_times(tr)
+    pkin = train_step_inputs(tr)
     tr.load_state(start)
     # Kernels 5 and 6 against their plain versions on the step's own
     # inputs, kernel 6 with the loss's cotangent.
@@ -4695,8 +3912,7 @@ def main() -> int:
         f"{int(pkin['nchunks'].sum())} of "
         f"{int(chunks_walked(pkin['tiles']).sum())} chunks run")
     prefine_at = PALLAS_REFINE_AT
-    phist, pstep_ms, plaunches = train_main_path(tr, PALLAS_STEPS,
-                                                 prefine_at)
+    phist, plaunches = train_main_path(tr, PALLAS_STEPS, prefine_at)
     check_training(phist, plaunches, prefine_at, PALLAS_REG_FROM, {
         "decode": 1, "composite_tiles": 1, "composite_tiles_bwd": 1,
         "segment_sum": 2})
@@ -4713,9 +3929,6 @@ def main() -> int:
         f"{phist[-1]['num_gaussians']}, capacity {tr.alive.shape[0]}; "
         f"opacity reset after step {PALLAS_REFINE_EVERY}; depth-normal loss "
         f"from step {PALLAS_REG_FROM}")
-    say(f"train step (pallas, host clock, bench scene): median "
-        f"{statistics.median(pstep_ms):.4f} ms over {len(pstep_ms)} steps, "
-        f"min {min(pstep_ms):.4f}, max {max(pstep_ms):.4f}")
     check_determinism(tr)
     del tr, start
     torch.cuda.empty_cache()
@@ -4763,202 +3976,42 @@ def main() -> int:
     # the entry points of collab_splats_tpu_torch/scripts/.
     scale = scale_path(dev)
     torch.cuda.empty_cache()
-    for backend, f in (("xla", fx), ("pallas", fp)):
-        say(f"layers of the rade-features {backend} train step, bench scene "
-            f"camera 0 (median of {REPS}, ms): " + ", ".join(
-                f"{k} {v:.4f}" for k, v in f["layers"].items()))
-    # Per element of the kernels' rows, the feature steps' widths against
-    # the RaDe-GS steps' (V = 6, C = 3, D = 15).
-    elems = []
-    for label, kk, lay in (("RaDe-GS", kin, tlayers),
-                           ("rade-features", fx["kin"], fx["layers"])):
-        g, mask, ntx = kk["fwd_args"][:3]
-        t, k, d = g.shape
-        m, dseg = kk["segsum_args"][2].shape
-        elems.append(f"{label} V={d - 9}: " + "; ".join([
-            per_element("kernel 2", median_ms(
-                lambda: batched.composite_batched_fwd(g, mask, ntx, TS,
-                                                      NEAR)), t * k * d),
-            per_element("kernel 3", lay["composite_bwd kernel"], t * k * d),
-            per_element(f"kernel 4 at D={dseg}", lay["segment_sum kernel"],
-                        m * dseg)]))
-    stop = RenderOptions().stop_threshold
-    for label, kk, lay in (("RaDe-GS", pkin, player),
-                           ("rade-features", fp["kin"], fp["layers"])):
-        ti, nch = kk["tiles"], kk["nchunks"]
-        slots = walked_slots(ti, nch) * ti.per_gauss.shape[1]
-        m, dseg = kk["segsum_args"][2].shape
-        elems.append(f"{label} C={ti.n_color}: " + "; ".join([
-            per_element("kernel 5", median_ms(
-                lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
-                slots),
-            per_element("kernel 6", lay["composite_tiles_bwd kernel"], slots),
-            per_element(f"kernel 4 at D={dseg}", lay["segment_sum kernel"],
-                        m * dseg)]))
-    say("kernels per element of their rows on the train steps' own inputs "
-        "(median of 10; rows T*K*(9+V), walked slots * Dp, M*D): "
-        + " | ".join(elems))
 
-    records = {}
-    for name, (params, alive, cams, cfg) in scenes.items():
-        plan, g, mask, ntx, errs = inputs[name]
-        turn = iter(range(10 ** 6))
-        rec = {
-            "decode_ms": median_ms(
-                lambda: binning_kernel.decode_bin_keys(*decode_args(plan))),
-            "decode_plain_ms": median_ms(
-                lambda: binning_kernel.decode_keys_plain(*decode_args(plan))),
-            "composite_ms": median_ms(
-                lambda: batched.composite_batched_fwd(g, mask, ntx, TS,
-                                                      NEAR)),
-            "composite_banked_ms": median_ms(
-                lambda: batched.composite_batched_fwd(g, mask, ntx, TS, NEAR,
-                                                      bank_prefix=True)),
-            "composite_plain_ms": median_ms(
-                lambda: compositing.fused_forward(g, mask, ntx, TS, NEAR,
-                                                  tile_chunk=256)),
-            "render_ms": timings(
-                lambda: render(params, alive, cams[next(turn) % len(cams)],
-                               cfg),
-                host_clock=True, reps=RENDER_REPS),
-            "decode_bound": decode_bound(plan),
-            "composite_bound": composite_bound(g, mask, ntx),
-            "errs": errs,
-        }
-        # Kernel 5 at the main path's C = 3 and stop_threshold.
-        ti, terrs, _ = tiles_in[name]
-        stop = pallas_scenes[name][3].render.stop_threshold
-        _, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
-        pcfg = pallas_scenes[name][3]
-        rec.update({
-            "composite_tiles_ms": median_ms(
-                lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
-            "composite_tiles_plain_ms": median_ms(
-                lambda: composite.composite_tiles_fwd_gather_plain(
-                    *ti.fwd_args(stop))),
-            "composite_tiles_bound": composite_tiles_bound(ti, nch),
-            "pallas_render_ms": timings(
-                lambda: render(params, alive, cams[next(turn) % len(cams)],
-                               pcfg),
-                host_clock=True, reps=RENDER_REPS),
-        })
-        rec["errs"].update(terrs)
-        records[name] = rec
-        layers = layer_times(params, alive, cams[0], cfg)
-        say(f"layers {name} camera 0 (median of {REPS}, ms): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in layers.items())
-            + f"; sum {sum(layers.values()):.4f}")
-        say(f"time {name} (median of {REPS}): decode kernel "
-            f"{rec['decode_ms']:.4f} ms, plain {rec['decode_plain_ms']:.4f} "
-            f"ms, bound {rec['decode_bound'][0]:.4f} ms by "
-            f"{rec['decode_bound'][1]}; composite kernel "
-            f"{rec['composite_ms']:.4f} ms ({rec['composite_banked_ms']:.4f} "
-            f"ms banking the prefix), plain "
-            f"{rec['composite_plain_ms']:.4f} ms, bound "
-            f"{rec['composite_bound'][0]:.4f} ms by "
-            f"{rec['composite_bound'][1]}")
-        culled, live_share = cull_shares(g, mask, ntx)
-        say(f"composite {name} (V=6): of the (pixel, masked-in slot) pairs "
-            f"{100 * culled:.2f}% are decided by the cull without exp, "
-            f"{100 * (1 - culled):.2f}% run exp, {100 * live_share:.2f}% are "
-            f"live")
-        players = pallas_layer_times(params, alive, cams[0],
-                                     pallas_scenes[name][3])
-        say(f"layers {name} camera 0, pallas (median of {REPS}, ms): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in players.items())
-            + f"; sum {sum(players.values()):.4f}")
-        say(f"time {name}: composite_tiles kernel (C=3, stop "
-            f"{stop}, median of {REPS}) {rec['composite_tiles_ms']:.4f} ms, "
-            f"plain {rec['composite_tiles_plain_ms']:.4f} ms, bound "
-            f"{rec['composite_tiles_bound'][0]:.4f} ms by "
-            f"{rec['composite_tiles_bound'][1]}; {int(nch.sum())} of "
-            f"{int(chunks_walked(ti).sum())} chunks run")
-        for backend, key in (("xla", "render_ms"),
-                             ("pallas", "pallas_render_ms")):
-            r = rec[key]
-            say(f"render {name} ({backend}, host clock, {len(r)} calls "
-                f"cycling the cameras): median {statistics.median(r):.4f} ms "
-                f"per camera, min {min(r):.4f}, max {max(r):.4f}")
-
-    say(f"layers of the train step, bench scene camera 0 (median of {REPS}, "
-        f"ms): " + ", ".join(f"{k} {v:.4f}" for k, v in tlayers.items()))
-    bargs, sargs = kin["bwd_args"], kin["segsum_args"]
+    # Each kernel alone at the bench scene's main-path shapes (the RaDe-GS
+    # render and steps): (ms, (bound ms, bound by), library ms).
+    plan, g, mask, ntx, _ = inputs["bench"]
+    ti = tiles_in["bench"][0]
+    stop = pallas_scenes["bench"][3].render.stop_threshold
+    _, nch = composite.composite_tiles_fwd(*ti.fwd_args(stop))
+    sargs = kin["segsum_args"]
     m, d = sargs[2].shape
-    b = records["bench"]
-    b.update({
-        "composite_bwd_ms": tlayers["composite_bwd kernel"],
-        "composite_bwd_plain_ms": median_ms(
-            lambda: compositing.fused_backward(
-                bargs[0], bargs[1], bargs[7], bargs[8], *bargs[3:7],
-                kin["ntx"], TS, NEAR),
-            reps=PLAIN_REPS),
-        "composite_bwd_bound": composite_bwd_bound(kin["g"], kin["mask"],
-                                                   kin["ntx"]),
-        "segment_sum_ms": tlayers["segment_sum kernel"],
-        "segment_sum_plain_ms": median_ms(
-            lambda: segsum_kernel.segment_sum_plain(*sargs)),
-        "segment_sum_library_ms": median_ms(
-            lambda: torch.zeros((sargs[3], d), device=dev).index_add_(
-                0, kin["idx"].long(), sargs[2])),
-        "segment_sum_bound": segsum_bound(m, d, sargs[3]),
-    })
-    s2 = kin["segsum2_args"]
-    seg2 = {
-        "ms": median_ms(lambda: segsum_kernel.segment_sum_sorted(*s2)),
-        "library_ms": median_ms(
-            lambda: torch.zeros((s2[3], 2), device=dev).index_add_(
-                0, kin["idx"].long(), s2[2])),
-        "bound": segsum_bound(m, 2, s2[3]),
+    timed = {
+        "decode": (median_ms(
+            lambda: binning_kernel.decode_bin_keys(*decode_args(plan))),
+            decode_bound(plan), None),
+        "composite": (median_ms(
+            lambda: batched.composite_batched_fwd(g, mask, ntx, TS, NEAR)),
+            composite_bound(g, mask, ntx), None),
+        "composite_bwd": (median_ms(
+            lambda: batched.composite_batched_bwd(*kin["bwd_args"])),
+            composite_bwd_bound(kin["g"], kin["mask"], kin["ntx"]), None),
+        "segment_sum": (median_ms(
+            lambda: segsum_kernel.segment_sum_sorted(*sargs)),
+            segsum_bound(m, d, sargs[3]), median_ms(
+                lambda: torch.zeros((sargs[3], d), device=dev).index_add_(
+                    0, kin["idx"].long(), sargs[2]))),
+        "composite_tiles": (median_ms(
+            lambda: composite.composite_tiles_fwd(*ti.fwd_args(stop))),
+            composite_tiles_bound(ti, nch), None),
+        "composite_tiles_bwd": (median_ms(
+            lambda: composite.composite_tiles_bwd_call(*pkin["bwd_args"])),
+            composite_tiles_bwd_bound(pkin["tiles"], pkin["nchunks"]), None),
+        "project": (proj_rec["project_fwd_ms"],
+                    proj_rec["project_fwd_bound"], None),
+        "project_bwd": (proj_rec["project_bwd_ms"],
+                        proj_rec["project_bwd_bound"], None),
+        "sam_upscale": (up_rec["ms"], up_rec["bound"], up_rec["library_ms"]),
     }
-    live, masked_in = live_warp_slots(kin["g"], kin["mask"], kin["ntx"])
-    all_slots = kin["g"].shape[0] * kin["g"].shape[1] * TS * TS // 32
-    say(f"time train step kernels (bench scene, median of {REPS}; plain "
-        f"backward of {PLAIN_REPS}): composite_bwd kernel "
-        f"{b['composite_bwd_ms']:.4f} ms, plain "
-        f"{b['composite_bwd_plain_ms']:.4f} ms, bound "
-        f"{b['composite_bwd_bound'][0]:.4f} ms by "
-        f"{b['composite_bwd_bound'][1]}; segment_sum kernel "
-        f"{b['segment_sum_ms']:.4f} ms, plain "
-        f"{b['segment_sum_plain_ms']:.4f} ms, index_add_ "
-        f"{b['segment_sum_library_ms']:.4f} ms, bound "
-        f"{b['segment_sum_bound'][0]:.4f} ms by {b['segment_sum_bound'][1]} "
-        f"(M={m}, D={d}, N={sargs[3]}); at the statistic's D=2 rows "
-        f"segment_sum kernel {seg2['ms']:.4f} ms, index_add_ "
-        f"{seg2['library_ms']:.4f} ms, bound {seg2['bound'][0]:.4f} ms by "
-        f"{seg2['bound'][1]}")
-    say(f"composite_bwd at the train step: {live} of {all_slots} (warp, "
-        f"window slot) pairs ({100 * live / all_slots:.2f}%) have a pixel "
-        f"whose alpha passes the cutoff ({100 * live / masked_in:.2f}% of "
-        f"the {masked_in} masked-in pairs); only those run the gradient and "
-        f"the butterfly")
-    say(f"layers of the pallas train step, bench scene camera 0 (median of "
-        f"{REPS}, ms): " + ", ".join(f"{k} {v:.4f}"
-                                    for k, v in player.items()))
-    bt = pkin["bwd_args"]
-    b.update({
-        "composite_tiles_bwd_ms": player["composite_tiles_bwd kernel"],
-        "composite_tiles_bwd_plain_ms": median_ms(
-            lambda: composite.composite_tiles_bwd_gather_plain(*bt)),
-        "composite_tiles_bwd_bound": composite_tiles_bwd_bound(
-            pkin["tiles"], pkin["nchunks"]),
-    })
-    say(f"time pallas train step kernel (bench scene): composite_tiles_bwd "
-        f"kernel {b['composite_tiles_bwd_ms']:.4f} ms, plain "
-        f"{b['composite_tiles_bwd_plain_ms']:.4f} ms (median of {REPS} "
-        f"each), bound "
-        f"{b['composite_tiles_bwd_bound'][0]:.4f} ms by "
-        f"{b['composite_tiles_bwd_bound'][1]} "
-        f"({int(pkin['nchunks'].sum())} chunks)")
-    tlive, tall = tiles_live_warp_slots(pkin["tiles"], pkin["nchunks"])
-    say(f"composite_tiles_bwd at the pallas train step: {tlive} of {tall} "
-        f"(warp, slot) pairs inside the segments of the chunks run "
-        f"({100 * tlive / tall:.2f}%) have a pixel of the warp's 8x4 block "
-        f"whose alpha passes the cutoff; only those run the gradient and "
-        f"the butterfly")
-    longest, share = long_rows_share(pkin["idx"], pkin["segsum_args"][3])
-    say(f"segment_sum at the pallas train step: longest segment {longest} "
-        f"rows, {100 * share:.4f}% of the rows in segments over "
-        f"{segsum_kernel.LONG_ROWS}")
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
     # launches summed over the training main paths, mesh extraction, the
@@ -4981,61 +4034,39 @@ def main() -> int:
         for k, p in path_launches.items()))
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in launches}
-    feature_errs = [fx["errs"], fp["errs"], tw["errs"], opt["errs"],
-                    pipe["errs"], sharded["errs"], golden["errs"],
-                    scale["errs"]]
+    errs = [fx["errs"], fp["errs"], tw["errs"], opt["errs"], pipe["errs"],
+            sharded["errs"], golden["errs"], scale["errs"], step_errs,
+            edge_errs, *({**inputs[n][4], **tiles_in[n][1]} for n in scenes)]
+    # The errors of kernels 7 and 8, over the largest |ref|.
+    rel_errs = {"project": proj_rec["fwd_err"],
+                "project_bwd": proj_rec["bwd_err"],
+                "sam_upscale": up_rec["err"]}
     kernels = []
-    for key, name, src, tpu, lib in (
-            ("decode", "decode_bin_keys", "binning_kernel.cu",
-             "binning_kernel.py:172", None),
-            ("composite", "composite_batched_fwd", "batched_fwd.cu",
-             "batched.py:176", None),
-            ("composite_bwd", "composite_batched_bwd", "batched_bwd.cu",
-             "batched_bwd.py:187", None),
-            ("segment_sum", "segment_sum_sorted", "segsum_kernel.cu",
-             "segsum_kernel.py:99", "segment_sum_library_ms"),
-            ("composite_tiles", "composite_tiles_fwd", "composite_fwd.cu",
-             "composite.py:557", None),
-            ("composite_tiles_bwd", "composite_tiles_bwd_call",
-             "composite_bwd.cu", "composite.py:624", None)):
+    for key, src, tpu in (
+            ("decode", "binning_kernel.cu", "binning_kernel.py:172"),
+            ("composite", "batched_fwd.cu", "batched.py:176"),
+            ("composite_bwd", "batched_bwd.cu", "batched_bwd.py:187"),
+            ("segment_sum", "segsum_kernel.cu", "segsum_kernel.py:99"),
+            ("composite_tiles", "composite_fwd.cu", "composite.py:557"),
+            ("composite_tiles_bwd", "composite_bwd.cu", "composite.py:624"),
+            ("project", "projection.cu", None),
+            ("project_bwd", "projection.cu", None),
+            # Kernel 8's plain version on the card is the cuDNN chain.
+            ("sam_upscale", "sam_upscale.cu", None)):
+        ms, (bound_ms, bound_by), library_ms = timed[key]
+        if key in rel_errs:
+            err = {"max_err_over_max_ref": rel_errs[key]}
+        elif key == "segment_sum":
+            err = {"max_abs_err": max(seg_err, *seg_errs)}
+        else:
+            err = {"max_abs_err": max(e.get(key, 0.0) for e in errs)}
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": KERNELS[key], "route": "cuda",
             "source": f"collab_splats_tpu_torch/csrc/{src}",
-            "replaces": f"collab_splats_tpu/ops/pallas/{tpu}",
-            "launches": launches[key],
-            "max_abs_err": (max(seg_err, *seg_errs) if key == "segment_sum"
-                            else max(step_errs.get(key, 0.0),
-                                     edge_errs.get(key, 0.0),
-                                     *(e.get(key, 0.0) for e in feature_errs),
-                                     *(r["errs"][key]
-                                       for r in records.values()))),
-            "ms": b[f"{key}_ms"], "plain_ms": b[f"{key}_plain_ms"],
-            "bound_ms": b[f"{key}_bound"][0],
-            "bound_by": b[f"{key}_bound"][1],
-            "library_ms": b[lib] if lib else None,
+            "replaces": tpu and f"collab_splats_tpu/ops/pallas/{tpu}",
+            "launches": launches[key], **err, "ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
         })
-    for key, err, count in (("project_fwd", "fwd_err", "project"),
-                            ("project_bwd", "bwd_err", "project_bwd")):
-        kernels.append({
-            "name": key, "route": "cuda",
-            "source": "collab_splats_tpu_torch/csrc/projection.cu",
-            "replaces": None, "launches": launches[count],
-            "max_err_over_max_ref": proj_rec[err],
-            "ms": proj_rec[f"{key}_ms"],
-            "plain_ms": proj_rec[f"{key}_plain_ms"],
-            "bound_ms": proj_rec[f"{key}_bound"][0],
-            "bound_by": proj_rec[f"{key}_bound"][1], "library_ms": None,
-        })
-    # Kernel 8's plain version on the card is the cuDNN chain itself.
-    kernels.append({
-        "name": "sam_upscale", "route": "cuda",
-        "source": "collab_splats_tpu_torch/csrc/sam_upscale.cu",
-        "replaces": None, "launches": launches["sam_upscale"],
-        "max_err_over_max_ref": up_rec["err"], "ms": up_rec["ms"],
-        "plain_ms": up_rec["plain_ms"], "bound_ms": up_rec["bound"][0],
-        "bound_by": up_rec["bound"][1], "library_ms": up_rec["library_ms"],
-        "ms_b1": up_rec["ms_b1"], "library_ms_b1": up_rec["library_ms_b1"],
-    })
     say(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(f"card: {CARD}")
     print(json.dumps({"kernels": kernels}))

@@ -6,13 +6,12 @@ composite_batched_fwd`` and ``ops/pallas/batched_bwd.py::
 composite_batched_bwd``, which compute the forward and the backward of the
 XLA fused compositor.  For CPU tensors each wrapper runs its plain version
 (``core/compositing.py::fused_forward`` / ``fused_backward``); for CUDA
-tensors it launches its kernel or raises.
+tensors it runs its kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -21,30 +20,11 @@ from ...core.compositing import (G_VALS, PREFIX_BATCH, fused_backward,
 from . import build
 from .build import KERNEL_TILE_SIZE, check_tensor
 
-launches = 0       # forward kernel launches since the caller last reset it
-bwd_launches = 0   # backward kernel launches since the caller last reset it
-
 KERNEL_VALUE_CHANNELS = (6, 19)   # normal ++ RGB, normal ++ RGB ++ 13 latents
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-@functools.cache
-def _fwd_fn():
-    fn = build.load("batched_fwd").composite_batched_fwd
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P,
-                   _P, _P, _P]
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _bwd_fn():
-    fn = build.load("batched_bwd").composite_batched_bwd
-    fn.argtypes = [_P] * 9 + [_I, _I, _I, _I, ctypes.c_float, _P, _P]
-    fn.restype = _I
-    return fn
+_F = ctypes.c_float
 
 
 def _check_rows(name, g, mask, ts):
@@ -92,15 +72,13 @@ def composite_batched_fwd(g: torch.Tensor, mask: torch.Tensor, ntx: int,
         outs += (prefix,)
     if t == 0:
         return outs
-    with torch.cuda.device(g.device):
-        rc = _fwd_fn()(g.data_ptr(), mask.data_ptr(), t, k, v, ntx,
-                       near_plane, out_v.data_ptr(), alpha.data_ptr(),
-                       depth.data_ptr(), median.data_ptr(), idx.data_ptr(),
-                       None if prefix is None else prefix.data_ptr(),
-                       build.stream_handle(g.device))
-    build.check(rc, "composite_batched_fwd")
-    global launches
-    launches += 1
+    fn = build.entry("batched_fwd", "composite_batched_fwd", _P, _P, _I, _I,
+                     _I, _I, _F, *[_P] * 6)
+    build.launch("composite_batched_fwd", fn, g.device, g.data_ptr(),
+                 mask.data_ptr(), t, k, v, ntx, near_plane, out_v.data_ptr(),
+                 alpha.data_ptr(), depth.data_ptr(), median.data_ptr(),
+                 idx.data_ptr(),
+                 None if prefix is None else prefix.data_ptr())
     return outs
 
 
@@ -136,15 +114,13 @@ def composite_batched_bwd(g: torch.Tensor, mask: torch.Tensor,
     d_g = torch.empty_like(g)
     if t == 0:
         return d_g
-    with torch.cuda.device(dev):
-        rc = _bwd_fn()(g.data_ptr(), mask.data_ptr(), prefix.data_ptr(),
-                       g_v.data_ptr(), g_alpha.data_ptr(), g_depth.data_ptr(),
-                       g_med.data_ptr(), idx.data_ptr(), t_total.data_ptr(),
-                       t, k, v, ntx, near_plane, d_g.data_ptr(),
-                       build.stream_handle(dev))
-    build.check(rc, "composite_batched_bwd")
-    global bwd_launches
-    bwd_launches += 1
+    fn = build.entry("batched_bwd", "composite_batched_bwd", *[_P] * 9, _I,
+                     _I, _I, _I, _F, _P)
+    build.launch("composite_batched_bwd", fn, dev, g.data_ptr(),
+                 mask.data_ptr(), prefix.data_ptr(), g_v.data_ptr(),
+                 g_alpha.data_ptr(), g_depth.data_ptr(), g_med.data_ptr(),
+                 idx.data_ptr(), t_total.data_ptr(), t, k, v, ntx,
+                 near_plane, d_g.data_ptr())
     return d_g
 
 

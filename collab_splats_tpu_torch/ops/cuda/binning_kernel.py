@@ -3,21 +3,18 @@ kernel (``csrc/binning_kernel.cu``).
 
 Replaces the JAX package's Pallas ``ops/pallas/binning_kernel.py::
 decode_bin_keys``.  For CPU tensors the wrapper runs the plain version
-(:func:`decode_keys_plain`); for CUDA tensors it launches the kernel or
+(:func:`decode_keys_plain`); for CUDA tensors it runs the kernel or
 raises.  ``ops/tiles.py`` builds the inputs and sorts the result.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
 from . import build
-
-launches = 0   # kernel launches since the caller last reset it
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -114,15 +111,6 @@ def decode_keys_plain(d: DecodeInputs, m_cap: int, ntx: int, ts: int,
     return key.to(torch.int32), gid.to(torch.int32)
 
 
-@functools.cache
-def _fn():
-    fn = build.load("binning_kernel").decode_bin_keys
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P]
-    fn.restype = _I
-    return fn
-
-
 def decode_bin_keys(d: DecodeInputs, m_cap: int, ntx: int, ts: int,
                     rank_bits: int, num_tiles: int):
     """Per-slot (sort key, gid) of the intersection buffer, [m_cap] each.
@@ -154,16 +142,13 @@ def decode_bin_keys(d: DecodeInputs, m_cap: int, ntx: int, ts: int,
         raise ValueError(f"decode_bin_keys: m_cap {m_cap} out of range")
     key = torch.empty(m_cap, dtype=torch.int32, device=dev)
     gid = torch.empty(m_cap, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _fn()(
-            d.offsets.data_ptr(), d.counts.data_ptr(), d.ncols.data_ptr(),
-            d.tile0.data_ptr(), d.rank.data_ptr(),
-            d.cull.data_ptr() if d.cull is not None else None,
-            n, m_cap, ntx, ts, rank_bits, num_tiles,
-            int(d.cull is not None),
-            key.data_ptr(), gid.data_ptr(), build.stream_handle(dev),
-        )
-    build.check(rc, "decode_bin_keys")
-    global launches
-    launches += 1
+    fn = build.entry("binning_kernel", "decode_bin_keys", *[_P] * 6,
+                     *[_I] * 7, _P, _P)
+    build.launch(
+        "decode_bin_keys", fn, dev,
+        d.offsets.data_ptr(), d.counts.data_ptr(), d.ncols.data_ptr(),
+        d.tile0.data_ptr(), d.rank.data_ptr(),
+        d.cull.data_ptr() if d.cull is not None else None,
+        n, m_cap, ntx, ts, rank_bits, num_tiles, int(d.cull is not None),
+        key.data_ptr(), gid.data_ptr())
     return key, gid

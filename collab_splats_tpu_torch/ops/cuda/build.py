@@ -1,14 +1,18 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc, load them with ctypes, and
+launch and count their C entries.
 
 Each ``csrc/<name>.cu`` is compiled on its own into a shared library with a
 plain C interface, under ``build/torch_kernels/`` of the checkout, named by
 a hash of the source and the flags: a changed source builds anew, an
 unchanged one is reused.  Nothing is built when a module is imported; the
-first launch (or :func:`build_all`) builds.
+first launch (or :func:`build_all`) builds.  Every wrapper in ``ops/cuda/``
+binds its entry with :func:`entry` and launches it with :func:`launch`,
+which counts each launch that returned no error in :data:`launches`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -27,6 +31,10 @@ NVCC_FLAGS = (
 )
 # The compositing kernels run one thread per pixel of a 16x16 tile.
 KERNEL_TILE_SIZE = 16
+
+# Launches that returned no error, keyed by the name each wrapper launches
+# its entry under; callers read, copy and clear it.
+launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -81,6 +89,16 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+@functools.cache
+def entry(name: str, symbol: str, *argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu``, taking ``argtypes``
+    and then the stream handle, returning its cudaGetLastError()."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def stream_handle(device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on ``device``, for a kernel launch."""
     import torch
@@ -102,3 +120,15 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry returned a CUDA error (its cudaGetLastError())."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def launch(name: str, fn, device, *args) -> None:
+    """Call the C entry ``fn`` on ``device`` with ``args`` and PyTorch's
+    current stream there; raise if it returned an error, else count it in
+    :data:`launches` under ``name``."""
+    import torch
+
+    with torch.cuda.device(device):
+        rc = fn(*args, stream_handle(device))
+    check(rc, name)
+    launches[name] += 1

@@ -6,7 +6,7 @@ Replaces the JAX package's Pallas ``ops/pallas/composite.py::
 composite_tiles_fwd`` and ``composite_tiles_bwd_call`` (and the
 ``custom_vjp`` ``composite_tiles`` around them), the compositor of
 ``RenderOptions(backend="pallas")``.  For CPU tensors each wrapper runs its
-plain version; for CUDA tensors it launches its kernel or raises.
+plain version; for CUDA tensors it runs its kernel or raises.
 
 The wrappers read each slot's row through the aligned ids: slot ``s`` of
 the aligned intersection list (``ops/tiles.py::align_segments``) is the row
@@ -63,9 +63,6 @@ KERNEL_COLOR_CHANNELS = (3, 16)   # RGB, and RGB ++ 13 latents
 # Tiles the plain versions composite at once (memory stays bounded).
 _PLAIN_TILES = 256
 
-launches = 0       # forward kernel launches since the caller last reset it
-bwd_launches = 0   # backward kernel launches since the caller last reset it
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -73,23 +70,9 @@ _F = ctypes.c_float
 
 
 @functools.cache
-def _fwd_fn():
-    fn = build.load("composite_fwd").composite_tiles_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _F, _I, _P, _P,
-                   _P]
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _bwd_fn():
-    lib = build.load("composite_bwd")
-    fn = lib.composite_tiles_bwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _I, _P,
-                   _P, _P]
-    fn.restype = _I
-    # Entries the kernel banks per (tile, chunk, pixel) in its scratch.
-    return fn, lib.composite_tiles_bwd_banked()
+def _banked() -> int:
+    """Entries kernel 6 banks per (tile, chunk, pixel) in its scratch."""
+    return build.load("composite_bwd").composite_tiles_bwd_banked()
 
 
 def log_stop(stop_threshold: float) -> float:
@@ -446,16 +429,14 @@ def composite_tiles_fwd(per_gauss: torch.Tensor, aligned_gid: torch.Tensor,
     nchunks = torch.empty(t, dtype=torch.int32, device=dev)
     if t == 0:
         return out, nchunks
-    with torch.cuda.device(dev):
-        rc = _fwd_fn()(per_gauss.data_ptr(), aligned_gid.data_ptr(),
-                       sink.data_ptr() if sink is not None else None,
-                       starts.data_ptr(), lens.data_ptr(), t, m, num_tiles_x,
-                       n_color, near_plane, log_stop(stop_threshold),
-                       max_chunks, out.data_ptr(), nchunks.data_ptr(),
-                       build.stream_handle(dev))
-    build.check(rc, "composite_tiles_fwd")
-    global launches
-    launches += 1
+    fn = build.entry("composite_fwd", "composite_tiles_fwd", *[_P] * 5, _I,
+                     _L, _I, _I, _F, _F, _I, _P, _P)
+    build.launch("composite_tiles_fwd", fn, dev, per_gauss.data_ptr(),
+                 aligned_gid.data_ptr(),
+                 sink.data_ptr() if sink is not None else None,
+                 starts.data_ptr(), lens.data_ptr(), t, m, num_tiles_x,
+                 n_color, near_plane, log_stop(stop_threshold), max_chunks,
+                 out.data_ptr(), nchunks.data_ptr())
     return out, nchunks
 
 
@@ -493,19 +474,15 @@ def composite_tiles_bwd_call(per_gauss: torch.Tensor,
         return d_slot
     # Per (tile, chunk, pixel): the log T carried into the chunk and the
     # in-chunk carry at each of its batch boundaries.
-    fn, banked = _bwd_fn()
-    scratch = torch.empty((t, max_chunks, banked, p), dtype=torch.float32,
+    scratch = torch.empty((t, max_chunks, _banked(), p), dtype=torch.float32,
                           device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(per_gauss.data_ptr(), aligned_gid.data_ptr(),
-                sink.data_ptr() if sink is not None else None,
-                starts.data_ptr(), lens.data_ptr(), nchunks.data_ptr(),
-                g_packed.data_ptr(), t, m, num_tiles_x, n_color, near_plane,
-                max_chunks, scratch.data_ptr(), d_slot.data_ptr(),
-                build.stream_handle(dev))
-    build.check(rc, "composite_tiles_bwd_call")
-    global bwd_launches
-    bwd_launches += 1
+    fn = build.entry("composite_bwd", "composite_tiles_bwd", *[_P] * 7, _I,
+                     _L, _I, _I, _F, _I, _P, _P)
+    build.launch(name, fn, dev, per_gauss.data_ptr(), aligned_gid.data_ptr(),
+                 sink.data_ptr() if sink is not None else None,
+                 starts.data_ptr(), lens.data_ptr(), nchunks.data_ptr(),
+                 g_packed.data_ptr(), t, m, num_tiles_x, n_color, near_plane,
+                 max_chunks, scratch.data_ptr(), d_slot.data_ptr())
     return d_slot
 
 

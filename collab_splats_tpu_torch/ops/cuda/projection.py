@@ -5,7 +5,7 @@ They replace the plain autograd chain of ``core/projection.py::
 project_gaussians`` on the render's path; the JAX package has no Pallas
 kernel there (XLA fuses the projection).  For CPU tensors the forward runs
 ``project_gaussians`` and the backward ``project_backward``; for CUDA
-tensors each launches its kernel or raises.  Gradients reach means, quats
+tensors each runs its kernel or raises.  Gradients reach means, quats
 and scales, and ``viewmat`` and ``K`` where they require grad (pose
 optimisation).
 """
@@ -13,7 +13,6 @@ optimisation).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -22,28 +21,9 @@ from ...utils import profiling
 from . import build
 from .build import check_tensor
 
-launches = 0       # forward kernel launches since the caller last reset it
-bwd_launches = 0   # backward kernel launches since the caller last reset it
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-
-
-@functools.cache
-def _fwd_fn():
-    fn = build.load("projection").project_fwd
-    fn.argtypes = [_P] * 6 + [_I, _I, _I, _F, _F, _F, _F] + [_P] * 10
-    fn.restype = _I
-    return fn
-
-
-@functools.cache
-def _bwd_fn():
-    fn = build.load("projection").project_bwd
-    fn.argtypes = [_P] * 5 + [_I, _F, _F, _F] + [_P] * 9
-    fn.restype = _I
-    return fn
 
 
 def _camera(viewmat, K, dev):
@@ -92,16 +72,14 @@ def project_fwd(means, quats, scales, viewmat, K, width, height, eps2d,
                      radius_xy=empty(2))
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = _fwd_fn()(
-            means.data_ptr(), quats.data_ptr(), scales.data_ptr(),
-            None if opacities is None else opacities.data_ptr(),
-            viewmat.data_ptr(), K.data_ptr(), n, width, height, eps2d,
-            near_plane, far_plane, radius_clip,
-            *(x.data_ptr() for x in out), build.stream_handle(dev))
-    build.check(rc, "project_fwd")
-    global launches
-    launches += 1
+    fn = build.entry("projection", "project_fwd", *[_P] * 6, _I, _I, _I, _F,
+                     _F, _F, _F, *[_P] * 9)
+    build.launch(
+        "project_fwd", fn, dev, means.data_ptr(), quats.data_ptr(),
+        scales.data_ptr(),
+        None if opacities is None else opacities.data_ptr(),
+        viewmat.data_ptr(), K.data_ptr(), n, width, height, eps2d,
+        near_plane, far_plane, radius_clip, *(x.data_ptr() for x in out))
     profiling.count("render.fused_rows", n)
     return out
 
@@ -156,18 +134,15 @@ def project_bwd(means, quats, scales, viewmat, K, eps2d, near_plane,
         return v_means, v_quats, v_scales, v_viewmat, v_K
     ptrs = (_P * 6)(*(None if g is None else g.data_ptr() for g, _ in held))
     strides = (ctypes.c_longlong * 6)(*(s for _, s in held))
-    with torch.cuda.device(dev):
-        rc = _bwd_fn()(
-            means.data_ptr(), quats.data_ptr(), scales.data_ptr(),
-            viewmat.data_ptr(), K.data_ptr(), n, eps2d, near_plane,
-            far_plane, ptrs, strides, v_means.data_ptr(), v_quats.data_ptr(),
-            v_scales.data_ptr(),
-            *(None if x is None else x.data_ptr()
-              for x in (partials, v_viewmat, v_K)),
-            build.stream_handle(dev))
-    build.check(rc, "project_bwd")
-    global bwd_launches
-    bwd_launches += 1
+    fn = build.entry("projection", "project_bwd", *[_P] * 5, _I, _F, _F, _F,
+                     *[_P] * 8)
+    build.launch(
+        "project_bwd", fn, dev, means.data_ptr(), quats.data_ptr(),
+        scales.data_ptr(), viewmat.data_ptr(), K.data_ptr(), n, eps2d,
+        near_plane, far_plane, ptrs, strides, v_means.data_ptr(),
+        v_quats.data_ptr(), v_scales.data_ptr(),
+        *(None if x is None else x.data_ptr()
+          for x in (partials, v_viewmat, v_K)))
     return v_means, v_quats, v_scales, v_viewmat, v_K
 
 

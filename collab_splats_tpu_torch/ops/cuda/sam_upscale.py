@@ -5,22 +5,19 @@ It computes what ``features/sam.py::upscale_masks_plain`` computes (both
 the hypernetwork mask product) in one launch per prompt batch; the JAX
 package has no Pallas kernel there (XLA runs its transposed convolutions).
 ``features/sam.py::upscale_masks`` takes the plain chain for CPU tensors and
-this wrapper for CUDA ones, which launches the kernel or raises.  Forward
+this wrapper for CUDA ones, which runs the kernel or raises.  Forward
 only: the decoder runs under ``no_grad``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ...utils import profiling
 from . import build
 from .build import check_tensor
-
-launches = 0   # kernel launches since the caller last reset it
 
 # SAM's decoder widths, the same in every released model: the image
 # features, the two upscalings' channels; the mask slots at most.
@@ -29,14 +26,6 @@ GRID = 64            # the image features' side
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-@functools.cache
-def _fn():
-    fn = build.load("sam_upscale").sam_upscale
-    fn.argtypes = [_P] * 8 + [_I, _I, _P, _P]
-    fn.restype = _I
-    return fn
 
 
 # The last weights reshaped for the kernel: (up1.w, its version, up2.w, its
@@ -111,12 +100,9 @@ def upscale_masks(params, im: torch.Tensor,
                         device=dev)
     if b == 0:
         return masks
-    with torch.cuda.device(dev):
-        rc = _fn()(im.data_ptr(), *(w.data_ptr() for w in weights),
-                   hyper.data_ptr(), b, slots, masks.data_ptr(),
-                   build.stream_handle(dev))
-    build.check(rc, "sam_upscale")
-    global launches
-    launches += 1
+    fn = build.entry("sam_upscale", "sam_upscale", *[_P] * 8, _I, _I, _P)
+    build.launch("sam_upscale", fn, dev, im.data_ptr(),
+                 *(w.data_ptr() for w in weights), hyper.data_ptr(), b,
+                 slots, masks.data_ptr())
     profiling.count("sam.fused_up", b)
     return masks

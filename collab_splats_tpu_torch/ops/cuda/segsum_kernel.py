@@ -4,20 +4,18 @@
 Replaces the JAX package's Pallas ``ops/pallas/segsum_kernel.py::
 segment_sum_sorted`` (with ``expand_bwd_pallas`` around it).  For CPU
 tensors the wrapper runs the plain version (:func:`segment_sum_plain`); for
-CUDA tensors it launches the kernel or raises.  ``ops/segsum.py`` sorts the
+CUDA tensors it runs the kernel or raises.  ``ops/segsum.py`` sorts the
 ids and calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import build
 
-launches = 0   # kernel launches since the caller last reset it
 # Segments longer than this many rows are summed by a whole block of the
 # kernel, not by one group of lanes.
 LONG_ROWS = 128
@@ -43,14 +41,6 @@ def segment_sum_plain(sorted_ids: torch.Tensor, order: torch.Tensor,
     start = segment_starts_plain(sorted_ids, n)
     return torch.segment_reduce(rows[order], "sum",
                                 lengths=start[1:] - start[:-1], axis=0)
-
-
-@functools.cache
-def _fn():
-    fn = build.load("segsum_kernel").segment_sum_sorted
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
-    fn.restype = _I
-    return fn
 
 
 def segment_sum_sorted(sorted_ids: torch.Tensor, order: torch.Tensor,
@@ -93,11 +83,9 @@ def segment_sum_sorted(sorted_ids: torch.Tensor, order: torch.Tensor,
     lanes = 1
     while lanes < min(d, 32):
         lanes *= 2
-    with torch.cuda.device(dev):
-        rc = _fn()(sorted_ids.data_ptr(), order.data_ptr(), rows.data_ptr(),
-                   m, n, d, lanes, long_rows, start.data_ptr(),
-                   out.data_ptr(), build.stream_handle(dev))
-    build.check(rc, "segment_sum_sorted")
-    global launches
-    launches += 1
+    fn = build.entry("segsum_kernel", "segment_sum_sorted", _P, _P, _P,
+                     *[_I] * 5, _P, _P)
+    build.launch("segment_sum_sorted", fn, dev, sorted_ids.data_ptr(),
+                 order.data_ptr(), rows.data_ptr(), m, n, d, lanes,
+                 long_rows, start.data_ptr(), out.data_ptr())
     return out

@@ -27,7 +27,7 @@ from collab_splats_tpu.ops import tiles as jtiles
 from collab_splats_tpu_torch.core.options import RenderOptions as TOpts
 from collab_splats_tpu_torch.core.projection import Projection
 from collab_splats_tpu_torch.ops import tiles as ttiles
-from collab_splats_tpu_torch.ops.cuda import binning_kernel
+from collab_splats_tpu_torch.ops.cuda import binning_kernel, build
 from test_torch_core import numpy_scene
 
 torch.set_num_threads(2)
@@ -170,10 +170,11 @@ def test_decode_stream_contract(cull):
                             torch.from_numpy(np.array(opac)))
     d, m_cap, rank_bits = plan.inputs, plan.m_cap, plan.rank_bits
     num_tiles = plan.ntx * plan.nty
-    launches = binning_kernel.launches
+    launches = build.launches["decode_bin_keys"]
     key, gid = binning_kernel.decode_bin_keys(d, m_cap, plan.ntx, 16,
                                               rank_bits, num_tiles)
-    assert binning_kernel.launches == launches   # no kernel on the CPU
+    # No kernel on the CPU.
+    assert build.launches["decode_bin_keys"] == launches
     assert key.shape == gid.shape == (m_cap,)
     assert key.dtype == gid.dtype == torch.int32
     sentinel = num_tiles << rank_bits

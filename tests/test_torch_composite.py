@@ -17,7 +17,7 @@ import torch
 from collab_splats_tpu.core.compositing import fused_compositor
 from collab_splats_tpu.ops.pallas.batched import composite_batched_fwd
 from collab_splats_tpu_torch.core.compositing import fused_forward
-from collab_splats_tpu_torch.ops.cuda import batched
+from collab_splats_tpu_torch.ops.cuda import batched, build
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -95,12 +95,12 @@ def test_plain_compositor_matches_both_jax_compositors(v):
 
 def test_wrapper_runs_plain_version_on_cpu():
     g, mask = window_rows(6, seed=1)
-    launches = batched.launches
+    launches = build.launches["composite_batched_fwd"]
     got = batched.composite(torch.from_numpy(g), torch.from_numpy(mask),
                             NTX, TS, NEAR)
     ref = fused_forward(torch.from_numpy(g), torch.from_numpy(mask), NTX, TS,
                         NEAR)
-    assert batched.launches == launches
+    assert build.launches["composite_batched_fwd"] == launches
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 

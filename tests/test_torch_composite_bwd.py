@@ -19,7 +19,7 @@ import torch
 from collab_splats_tpu.core.compositing import fused_compositor
 from collab_splats_tpu.ops.rasterize import _pallas_fused
 from collab_splats_tpu_torch.core import compositing
-from collab_splats_tpu_torch.ops.cuda import batched
+from collab_splats_tpu_torch.ops.cuda import batched, build
 from test_torch_composite import K, NEAR, NTX, NTY, TS, window_rows
 
 torch.set_num_threads(2)
@@ -128,11 +128,12 @@ def test_banked_prefix_is_the_carry_in_front_of_each_batch():
 def test_composite_backward_runs_plain_version_on_cpu():
     g, mask = window_rows(6, seed=61)
     cots = cotangents(6, seed=62)
-    launches = (batched.launches, batched.bwd_launches)
+    names = ("composite_batched_fwd", "composite_batched_bwd")
+    launches = [build.launches[k] for k in names]
     gt = torch.from_numpy(g).requires_grad_(True)
     out = batched.composite(gt, torch.from_numpy(mask), NTX, TS, NEAR)
     torch.autograd.backward(out[:4], [torch.from_numpy(c) for c in cots])
-    assert (batched.launches, batched.bwd_launches) == launches
+    assert [build.launches[k] for k in names] == launches
     assert torch.equal(gt.grad, plain_backward(g, mask, cots))
 
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 import plain_sam as R
 from collab_splats_tpu_torch.features import sam as S
+from collab_splats_tpu_torch.ops.cuda import build
 from collab_splats_tpu_torch.ops.cuda import sam_upscale as op
 from collab_splats_tpu_torch.utils import profiling
 
@@ -170,10 +171,10 @@ def _bad(case):
     ids=lambda c: c[0])
 def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
     what, message = case
-    launches = op.launches
+    launches = build.launches["sam_upscale"]
     with pytest.raises(ValueError, match=message):
         op.upscale_masks(*_bad(what))
-    assert op.launches == launches
+    assert build.launches["sam_upscale"] == launches
 
 
 def test_the_reshaped_weights_follow_the_parameters():
@@ -236,13 +237,13 @@ def test_kernel_matches_the_plain_chain_on_the_card(b, weights):
     p = make(5, dev)
     im, hyper = inputs(b, 4, seed=b, device=dev,
                        steep=weights == "localised")
-    launches = op.launches
+    launches = build.launches["sam_upscale"]
     with torch.no_grad():
         got = S.upscale_masks(p, im, hyper)
         again = op.upscale_masks(p, im, hyper)
         ref = S.upscale_masks_plain(p, im, hyper)
     torch.cuda.synchronize()
-    assert op.launches == launches + 2
+    assert build.launches["sam_upscale"] == launches + 2
     assert torch.equal(got, again)
     assert gap(got, ref) <= 1e-5
 
@@ -260,7 +261,7 @@ def test_the_decoder_holds_the_reference_limits_on_the_card(multimask):
     pts = torch.tensor([[10.0, 20.0], [500.0, 300.0], [1000.5, 3.0],
                         [640.0, 700.0]])
     pc = {k: v.to(dev) for k, v in p.items()}
-    launches = op.launches
+    launches = build.launches["sam_upscale"]
     with torch.no_grad():
         sparse = S.encode_points(pc, pts[:, None].to(dev),
                                  torch.ones((4, 1), dtype=torch.int32,
@@ -268,7 +269,7 @@ def test_the_decoder_holds_the_reference_limits_on_the_card(multimask):
         low, iou = S.mask_decoder_forward(pc, emb.to(dev), S.dense_pe(pc),
                                           sparse, multimask=multimask,
                                           ln_eps=S.DECODER_LN_EPS)
-    assert op.launches == launches + 1
+    assert build.launches["sam_upscale"] == launches + 1
     pe = R.dense_pe(p)
     ref = [R.decode(p, emb, pe, R.point_tokens(p, xy), R.Precision(),
                     multimask) for xy in pts]
