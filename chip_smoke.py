@@ -1,8 +1,9 @@
 """The PyTorch/CUDA port's correctness run on one CUDA card.
 
-Builds the port's eight CUDA kernels from ``collab_splats_tpu_torch/csrc``
+Builds the port's CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the fused
-projection, forward and backward, on the bench scene in 2,524,288 rows;
+projection, forward and backward, and the SH colours, forward and
+backward, on the bench scene in 2,524,288 rows;
 SAM's fused mask upscaling at 64 prompts and at 1, beside the cuDNN chain;
 the
 per-tile pair, which reads each slot's row through the aligned ids, at C = 3
@@ -141,7 +142,7 @@ import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
-from collab_splats_tpu_torch.core import compositing
+from collab_splats_tpu_torch.core import compositing, sh
 from collab_splats_tpu_torch.core.options import RenderOptions
 from collab_splats_tpu_torch.core.projection import (project_backward,
                                                      project_gaussians)
@@ -161,7 +162,8 @@ from collab_splats_tpu_torch.models import gaussians, rade_features, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
 from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
                                               composite, projection,
-                                              sam_upscale, segsum_kernel)
+                                              sam_upscale, segsum_kernel,
+                                              sh_colors)
 from collab_splats_tpu_torch.pipeline.methods import get_method
 from collab_splats_tpu_torch.train import checkpoint, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1138,6 +1140,165 @@ def check_projection(scene):
             **t}
 
 
+# The SH colours (csrc/sh_colors.cu) at the same table, at sh_degree 3
+# (16 bases a row).  Bytes a row (float32 reads and writes) and float32
+# operations a row, about: the forward reads dc, rest and means and writes
+# the colour; the backward reads the colour's cotangent, means, dc and
+# rest and writes the gradients of dc, rest and means.
+SH_FWD_BYTES, SH_FWD_OPS = 4 * (3 + 45 + 3 + 3), 150
+SH_BWD_BYTES, SH_BWD_OPS = 4 * (3 + 3 + 3 + 45 + 3 + 45 + 3), 400
+# Kernel 9 is timed over this many launches between two CUDA events: one
+# call between them is about as long as the host's launch.
+SH_TIMED_LAUNCHES = 100
+
+
+def mean_ms(fn, launches=SH_TIMED_LAUNCHES):
+    """ms a call of ``fn`` over ``launches`` calls between two CUDA
+    events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def sh_table(scene):
+    """The bench scene's means and dc in PROJECT_ROWS rows (padding rows
+    at 0), seeded features_rest [PROJECT_ROWS, 15, 3] whose spread puts
+    some colours under the clamp, and camera 0's centre as the trainer
+    hands it over (a column of c2w)."""
+    params, _, cams, _ = scene
+    n, dev = params["means"].shape[0], params["means"].device
+    means = torch.zeros((PROJECT_ROWS, 3), device=dev)
+    dc = torch.zeros((PROJECT_ROWS, 3), device=dev)
+    means[:n] = params["means"].detach()
+    dc[:n] = params["features_dc"].detach()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rest = 0.4 * torch.randn((PROJECT_ROWS, 15, 3), generator=gen,
+                             device=dev)
+    return dc, rest, means, cams[0].camera_center()
+
+
+def check_sh_colors(scene):
+    """Kernel 9 (the SH colours) against ``eval_sh_colors`` and
+    ``eval_sh_colors_backward`` on :func:`sh_table` at every active degree:
+    the colours within 1e-6 of the largest, the gradients at the gradient
+    tolerance (rows whose shifted colour lies within 1e-4 of the clamp,
+    where the two may round to either side, left out), the masked bases'
+    gradients exactly 0, repeats bit-identical.
+    Then the op under autograd, the main path's route, with and without a
+    camera centre that takes a gradient (pose optimisation): one launch of
+    each kernel a step, the gradients against autograd of the plain chain,
+    the centre's too.  Then each kernel's time over SH_TIMED_LAUNCHES
+    launches beside its bound and beside the plain chain's (the einsum's
+    autograd graph, forward alone and backward alone).  Returns the kernel
+    entries' fields."""
+    dc, rest, means, center = sh_table(scene)
+    gen = torch.Generator(device=dc.device).manual_seed(24)
+    g = torch.randn((PROJECT_ROWS, 3), generator=gen, device=dc.device)
+    errs, g_errs, clamped = {}, {}, {}
+    for degree in range(4):
+        args = (dc, rest, means, center, degree)
+        with uncounted():
+            got = sh_colors.sh_fwd(*args)
+            again = sh_colors.sh_fwd(*args)
+            g_got = sh_colors.sh_bwd(*args, g)
+            g_again = sh_colors.sh_bwd(*args, g)
+        if not torch.equal(got, again) or not all(
+                torch.equal(a, b) for a, b in zip(g_got, g_again)):
+            raise AssertionError(f"sh_colors (degree {degree}): a repeat "
+                                 "differs")
+        ref = sh.eval_sh_colors(*args)
+        errs[degree] = rel_err(got, ref.cpu())
+        if errs[degree] > 1e-6:
+            raise AssertionError(f"sh_fwd (degree {degree}): error "
+                                 f"{errs[degree]:.3g} of the largest colour")
+        shifted = sh.eval_sh(torch.cat([dc[:, None], rest], dim=1),
+                             means - center, degree) + 0.5
+        far = (shifted.abs() > 1e-4).all(-1)
+        clamped[degree] = float((shifted < 0).float().mean())
+        del shifted, ref, again, g_again
+        if g_got[1][:, sh.num_sh_bases(degree) - 1:].any():
+            raise AssertionError(f"sh_bwd (degree {degree}): a masked base "
+                                 "took a gradient")
+        g_ref = sh.eval_sh_colors_backward(*args, g)
+        for name, a, r in zip(("dc", "rest", "means"), g_got, g_ref):
+            assert_grad_close(a[far], r[far],
+                              f"sh_bwd (degree {degree}): {name}")
+            # At degree 0 rest and means take exact zeros.
+            g_errs[f"{name} {degree}"] = rel_err(a[far], r[far].cpu()) \
+                if r.any() else float(a.abs().max())
+        del g_got, g_ref
+
+    # The op as compute_colors calls it, with the launches it makes; the
+    # cotangent 0 on the rows near the clamp (degree 3's), so that every
+    # row, and the centre's gradient that sums them, can be held.
+    g = torch.where(far[:, None], g, 0.0)
+    for camera_grad in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in (dc, rest, means)]
+        c2w = torch.eye(4, device=dc.device)
+        c2w[:3, 3] = center
+        wrt = leaves + [c2w.requires_grad_(True)] if camera_grad else leaves
+        with uncounted():
+            reset_counts()
+            got = torch.autograd.grad(
+                sh_colors.sh_colors(*leaves, c2w[:3, 3], 3), wrt, g)
+            torch.cuda.synchronize()
+            launches = counts()
+        if launches != {k: int(k in ("sh", "sh_bwd")) for k in launches}:
+            raise AssertionError(f"sh_colors (camera gradient "
+                                 f"{camera_grad}): launches {launches}")
+        ref_wrt = [x.detach().clone().requires_grad_(True) for x in wrt]
+        ref_center = ref_wrt[3][:3, 3] if camera_grad else center
+        ref = torch.autograd.grad(
+            sh.eval_sh_colors(*ref_wrt[:3], ref_center, 3), ref_wrt, g)
+        how = " with the centre" if camera_grad else ""
+        for name, a, r in zip(("dc", "rest", "means", "centre"), got, ref):
+            assert_grad_close(a, r, f"sh_colors: {name}")
+            g_errs[f"{name} (op{how})"] = rel_err(a, r.cpu())
+        del leaves, wrt, got, ref_wrt, ref
+
+    args = (dc, rest, means, center, 3)
+    plain = [x.clone().requires_grad_(True) for x in (dc, rest, means)]
+    plain_out = sh.eval_sh_colors(*plain, center, 3)
+    with uncounted():
+        t = {"sh_fwd_ms": mean_ms(lambda: sh_colors.sh_fwd(*args)),
+             "sh_bwd_ms": mean_ms(lambda: sh_colors.sh_bwd(*args, g))}
+    with torch.no_grad():
+        t["plain_fwd_ms"] = mean_ms(
+            lambda: sh.eval_sh_colors(*plain, center, 3), 10)
+    t["plain_bwd_ms"] = mean_ms(lambda: torch.autograd.grad(
+        plain_out, plain, g, retain_graph=True), 10)
+    del plain, plain_out
+    t["sh_fwd_bound"] = bound(SH_FWD_BYTES * PROJECT_ROWS,
+                              SH_FWD_OPS * PROJECT_ROWS)
+    t["sh_bwd_bound"] = bound(SH_BWD_BYTES * PROJECT_ROWS,
+                              SH_BWD_OPS * PROJECT_ROWS)
+    say(f"parity sh_colors ({PROJECT_ROWS} rows, 16 bases): colours' max "
+        f"abs err over the largest " + ", ".join(
+            f"degree {d} {e:.3g}" for d, e in errs.items())
+        + "; clamped share " + ", ".join(
+            f"{d}: {c:.3f}" for d, c in clamped.items())
+        + "; gradients' max abs err over the largest " + ", ".join(
+            f"{k} {v:.3g}" for k, v in g_errs.items())
+        + "; masked bases 0; repeats bit-identical; the op launches each "
+        "kernel once, with and without the centre's gradient")
+    say(f"sh_colors times (CUDA events over {SH_TIMED_LAUNCHES} launches, "
+        f"ms): forward kernel {t['sh_fwd_ms']:.4f} (bound "
+        f"{t['sh_fwd_bound'][0]:.4f} by {t['sh_fwd_bound'][1]}; the plain "
+        f"chain {t['plain_fwd_ms']:.4f}), backward kernel "
+        f"{t['sh_bwd_ms']:.4f} (bound {t['sh_bwd_bound'][0]:.4f} by "
+        f"{t['sh_bwd_bound'][1]}; the plain chain's backward "
+        f"{t['plain_bwd_ms']:.4f})")
+    return {"fwd_err": max(errs.values()), "bwd_err": max(g_errs.values()),
+            **t}
+
+
 # SAM's mask upscaling: float32 operations per image-feature pixel (the
 # two products, 256 x 256 and 4 x 64 x 128, and 16 x 32 x 4 of the mask
 # product, two each), and the prompt batches it is checked at (timed at the
@@ -1586,7 +1747,7 @@ KERNELS = {"decode": "decode_bin_keys", "composite": "composite_batched_fwd",
            "composite_tiles": "composite_tiles_fwd",
            "composite_tiles_bwd": "composite_tiles_bwd_call",
            "project": "project_fwd", "project_bwd": "project_bwd",
-           "sam_upscale": "sam_upscale"}
+           "sam_upscale": "sam_upscale", "sh": "sh_fwd", "sh_bwd": "sh_bwd"}
 
 
 def counts():
@@ -2873,7 +3034,8 @@ def options_path(dev, weights_dir):
                     composite=OPTIONS_STEPS + evals,
                     composite_bwd=OPTIONS_STEPS,
                     segment_sum=2 * OPTIONS_STEPS,
-                    project=OPTIONS_STEPS + evals, project_bwd=OPTIONS_STEPS)
+                    project=OPTIONS_STEPS + evals, project_bwd=OPTIONS_STEPS,
+                    sh=OPTIONS_STEPS + evals, sh_bwd=OPTIONS_STEPS)
         if launches != want:
             raise AssertionError(f"path 9: launches {launches}, expected "
                                  f"{want}")
@@ -3048,7 +3210,7 @@ def _pipeline_path(dev, root):
     want = {k: 0 for k in train_launches}
     want.update(decode=n_steps, composite=n_steps, composite_bwd=n_steps,
                 segment_sum=2 * n_steps, project=n_steps,
-                project_bwd=n_steps)
+                project_bwd=n_steps, sh=n_steps, sh_bwd=n_steps)
     if train_launches != want:
         raise AssertionError(f"path 10 training: launches {train_launches},"
                              f" expected {want}")
@@ -3140,7 +3302,7 @@ def _pipeline_path(dev, root):
                              f"{text[-400:]}")
     launches = counts()
     for k in ("decode", "composite", "composite_bwd", "segment_sum",
-              "project", "project_bwd"):
+              "project", "project_bwd", "sh", "sh_bwd"):
         if launches[k] == 0:
             raise AssertionError(f"path 10: {k} never launched")
     say(f"main path 10 (Splatter on a bench-scale dataset: 10 cameras at "
@@ -3166,7 +3328,8 @@ TILE_STEPS = 10
 SMALL_CAP_STEPS = 2      # tile-sharded steps at send_cap = shard / 8
 SHARDED_STEP0 = 3
 SHARDED_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
-                    "segment_sum": 2, "project": 2, "project_bwd": 1}
+                    "segment_sum": 2, "project": 2, "project_bwd": 1,
+                    "sh": 1, "sh_bwd": 1}
 # The routed step adds two segment sums: the slab gather's backward
 # (expand_rows) and the statistics routed back to their shard.
 TILE_PER_STEP = dict(SHARDED_PER_STEP, segment_sum=4)
@@ -3528,7 +3691,8 @@ def golden_path(dev):
                 composite_bwd=ANALYTIC_STEPS,
                 segment_sum=2 * ANALYTIC_STEPS, composite_tiles=1,
                 project=ANALYTIC_STEPS + renders_done + 2,
-                project_bwd=ANALYTIC_STEPS)
+                project_bwd=ANALYTIC_STEPS, sh=ANALYTIC_STEPS + renders_done,
+                sh_bwd=ANALYTIC_STEPS)
     if launches != want:
         raise AssertionError(f"path 12: launches {launches}, expected "
                              f"{want}")
@@ -3574,15 +3738,19 @@ SCALE_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
                   "segment_sum": 2, "project": 1, "project_bwd": 1}
 
 
-def scale_launches(steps, renders, skipped=0):
+def scale_launches(steps, renders, skipped=0, sh_degree=3):
     """Launches of ``steps`` train steps (``skipped`` of them non-finite,
-    whose statistics are not summed) and ``renders`` evaluation renders."""
+    whose statistics are not summed) and ``renders`` evaluation renders;
+    kernel 9's where the model's ``sh_degree`` is above 0."""
     want = {k: 0 for k in counts()}
     want.update({k: v * steps for k, v in SCALE_PER_STEP.items()})
     want["segment_sum"] -= skipped
     want["decode"] += renders
     want["composite"] += renders
     want["project"] += renders
+    if sh_degree:
+        want["sh"] = steps + renders
+        want["sh_bwd"] = steps
     return want
 
 
@@ -3747,7 +3915,7 @@ def scale_path(dev):
     del fres
     torch.cuda.empty_cache()
     stats, chain_launches = counted_leg(
-        "feature chain", lambda _: scale_launches(0, 32),
+        "feature chain", lambda _: scale_launches(0, 32, sh_degree=0),
         lambda: feature_chain_eval.run_chain(feat_dir, device=dev))
     if not (stats["n_vertices"] > 0 and stats["latent_dim"] == 13
             and 0.0 <= stats["similarity_min"] <= stats["similarity_max"]
@@ -3794,6 +3962,7 @@ def main() -> int:
     for name, sc in scenes.items():
         check_pallas_vs_xla(name, sc)
     proj_rec = check_projection(scenes["bench"])
+    sh_rec = check_sh_colors(scenes["bench"])
     with uncounted():
         up_rec = check_sam_upscale(dev)
     seg_err = check_segsum(
@@ -3866,7 +4035,8 @@ def main() -> int:
     refine_at = 2 * REFINE_EVERY
     hist, launches = train_main_path(tr, TRAIN_STEPS, refine_at)
     check_training(hist, launches, refine_at, REG_FROM, {
-        "decode": 1, "composite": 1, "composite_bwd": 1, "segment_sum": 2})
+        "decode": 1, "composite": 1, "composite_bwd": 1, "segment_sum": 2,
+        "sh": 1, "sh_bwd": 1})
     say(f"main path (training): {len(hist)} steps of the bench scene "
         f"(1M Gaussians, 1280x720, sh_degree 3, random background), "
         f"launches {launches}; losses "
@@ -3915,7 +4085,7 @@ def main() -> int:
     phist, plaunches = train_main_path(tr, PALLAS_STEPS, prefine_at)
     check_training(phist, plaunches, prefine_at, PALLAS_REG_FROM, {
         "decode": 1, "composite_tiles": 1, "composite_tiles_bwd": 1,
-        "segment_sum": 2})
+        "segment_sum": 2, "sh": 1, "sh_bwd": 1})
     say(f"main path (training, pallas): {len(phist)} steps of the bench "
         f"scene (1M Gaussians, 1280x720, sh_degree 3, random background, "
         f"stop_threshold {tr.config.model.render.stop_threshold}), launches "
@@ -4011,6 +4181,11 @@ def main() -> int:
         "project_bwd": (proj_rec["project_bwd_ms"],
                         proj_rec["project_bwd_bound"], None),
         "sam_upscale": (up_rec["ms"], up_rec["bound"], up_rec["library_ms"]),
+        # Kernel 9 over SH_TIMED_LAUNCHES launches between the events.
+        "sh": (sh_rec["sh_fwd_ms"], sh_rec["sh_fwd_bound"],
+               sh_rec["plain_fwd_ms"]),
+        "sh_bwd": (sh_rec["sh_bwd_ms"], sh_rec["sh_bwd_bound"],
+                   sh_rec["plain_bwd_ms"]),
     }
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
@@ -4037,10 +4212,11 @@ def main() -> int:
     errs = [fx["errs"], fp["errs"], tw["errs"], opt["errs"], pipe["errs"],
             sharded["errs"], golden["errs"], scale["errs"], step_errs,
             edge_errs, *({**inputs[n][4], **tiles_in[n][1]} for n in scenes)]
-    # The errors of kernels 7 and 8, over the largest |ref|.
+    # The errors of kernels 7, 8 and 9, over the largest |ref|.
     rel_errs = {"project": proj_rec["fwd_err"],
                 "project_bwd": proj_rec["bwd_err"],
-                "sam_upscale": up_rec["err"]}
+                "sam_upscale": up_rec["err"], "sh": sh_rec["fwd_err"],
+                "sh_bwd": sh_rec["bwd_err"]}
     kernels = []
     for key, src, tpu in (
             ("decode", "binning_kernel.cu", "binning_kernel.py:172"),
@@ -4051,8 +4227,10 @@ def main() -> int:
             ("composite_tiles_bwd", "composite_bwd.cu", "composite.py:624"),
             ("project", "projection.cu", None),
             ("project_bwd", "projection.cu", None),
-            # Kernel 8's plain version on the card is the cuDNN chain.
-            ("sam_upscale", "sam_upscale.cu", None)):
+            # Kernel 8's plain version on the card is the cuDNN chain,
+            # kernel 9's the einsum's autograd chain.
+            ("sam_upscale", "sam_upscale.cu", None),
+            ("sh", "sh_colors.cu", None), ("sh_bwd", "sh_colors.cu", None)):
         ms, (bound_ms, bound_by), library_ms = timed[key]
         if key in rel_errs:
             err = {"max_err_over_max_ref": rel_errs[key]}

@@ -18,7 +18,7 @@ import torch
 from ..core.cameras import Camera, depth_pair_to_normal
 from ..core.golden import RenderOutput
 from ..core.options import RenderOptions
-from ..core.sh import eval_sh
+from ..ops.cuda.sh_colors import sh_colors
 from ..ops.rasterize import RenderMeta, render_tiled, render_tiled_pallas
 from ..train import losses
 from ..utils import profiling
@@ -72,15 +72,15 @@ def compute_colors(params: GaussianParams, camera: Camera, step: int,
     """Per-Gaussian rasterization channels [N, 3 + latent_dim].
 
     SH evaluated in world space against the camera centre, +0.5 and
-    clamped at 0; ``sigmoid(features_dc)`` at sh_degree 0.
+    clamped at 0 (``ops/cuda/sh_colors.py``: kernel 9 on the card, counted
+    in ``render.sh_rows``); ``sigmoid(features_dc)`` at sh_degree 0.
     """
     if config.sh_degree > 0:
-        coeffs = torch.cat(
-            [params["features_dc"][:, None, :], params["features_rest"]],
-            dim=1)
-        dirs = params["means"] - camera.camera_center()[None, :]
-        rgb = eval_sh(coeffs, dirs, config.active_sh_degree(step))
-        rgb = torch.clamp(rgb + 0.5, min=0.0)
+        means = params["means"]
+        profiling.count("render.sh_rows", means.shape[0])
+        rgb = sh_colors(params["features_dc"], params["features_rest"], means,
+                        camera.camera_center(),
+                        config.active_sh_degree(step))
     else:
         rgb = torch.sigmoid(params["features_dc"])
     if config.latent_dim:
