@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..data.datamanager import FullImageDatamanager
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .decoder import resize_bilinear
 from .extractors import BaseExtractor, get_extractor
@@ -114,15 +115,8 @@ class FeatureDatamanager(FullImageDatamanager):
                     for i in range(len(self.train_images))
                 ]
         else:
-            self.train_features = []
-            for img in self.train_images:
-                fmap = {}
-                for name, ext in self._extractors.items():
-                    f = ext(np.asarray(img, np.float32) / 255.0)
-                    fmap[name] = _resize_chw(
-                        f.to(self.device, torch.float32),
-                        self.feature_config.final_resolution).contiguous()
-                self.train_features.append(fmap)
+            self.train_features = [self.extract(img)
+                                   for img in self.train_images]
             if cache is not None:
                 np.savez_compressed(cache, **{
                     f"{name}_{i}": fm[name].cpu().numpy()
@@ -133,6 +127,19 @@ class FeatureDatamanager(FullImageDatamanager):
             name: tuple(self.train_features[0][name].shape)
             for name in self.feature_config.extractors
         }
+
+    def extract(self, image_uint8: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Every configured extractor's map of one uint8 [H, W, 3] image,
+        its long edge brought down to ``final_resolution``, on the
+        datamanager's device (span ``features.image``)."""
+        with profiling.span("features.image"):
+            fmap = {}
+            for name, ext in self._extractors.items():
+                f = ext(np.asarray(image_uint8, np.float32) / 255.0)
+                fmap[name] = _resize_chw(
+                    f.to(self.device, torch.float32),
+                    self.feature_config.final_resolution).contiguous()
+            return fmap
 
     # ------------------------------------------------------------- serving
     def next_train(self, step: int, rng: np.random.RandomState):

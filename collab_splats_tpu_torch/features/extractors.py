@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import vit
 from .decoder import resize_bilinear
@@ -140,11 +141,13 @@ class DINOv2Extractor(BaseExtractor):
 
     @torch.no_grad()
     def __call__(self, image) -> torch.Tensor:
-        img, ph, pw = _prep_image(image, self.resolution, self.patch_size,
-                                  self.mean, self.std, self.device)
-        feats = vit.dinov2_forward(self.params, img, self.num_heads,
-                                   self.patch_size)
-        return feats.reshape(ph, pw, -1).permute(2, 0, 1).contiguous()
+        with profiling.span("features.dinov2"):
+            img, ph, pw = _prep_image(image, self.resolution,
+                                      self.patch_size, self.mean, self.std,
+                                      self.device)
+            feats = vit.dinov2_forward(self.params, img, self.num_heads,
+                                       self.patch_size)
+            return feats.reshape(ph, pw, -1).permute(2, 0, 1).contiguous()
 
 
 @register("clip-vit")
@@ -197,11 +200,13 @@ class MaskCLIPExtractor(BaseExtractor):
 
     @torch.no_grad()
     def __call__(self, image) -> torch.Tensor:
-        img, ph, pw = _prep_image(image, self.resolution, self.patch_size,
-                                  self.mean, self.std, self.device)
-        feats = vit.maskclip_forward(self.params, img, self.num_heads,
-                                     self.patch_size)
-        return feats.reshape(ph, pw, -1).permute(2, 0, 1).contiguous()
+        with profiling.span("features.clip"):
+            img, ph, pw = _prep_image(image, self.resolution,
+                                      self.patch_size, self.mean, self.std,
+                                      self.device)
+            feats = vit.maskclip_forward(self.params, img, self.num_heads,
+                                         self.patch_size)
+            return feats.reshape(ph, pw, -1).permute(2, 0, 1).contiguous()
 
     @torch.no_grad()
     def encode_text(self, texts) -> torch.Tensor:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -64,21 +65,24 @@ def layer_norm(x, scale, bias, eps=1e-6):
 
 def attention(x, p, prefix, num_heads, causal=False):
     """Multi-head self-attention over tokens [..., T, D]; weights
-    ``{prefix}.{wq,wk,wv,wo}`` [D, D] and ``{prefix}.{bq,bk,bv,bo}``."""
-    *lead, t, d = x.shape
-    hd = d // num_heads
+    ``{prefix}.{wq,wk,wv,wo}`` [D, D] and ``{prefix}.{bq,bk,bv,bo}``
+    (span ``vit.attention``)."""
+    with profiling.span("vit.attention"):
+        *lead, t, d = x.shape
+        hd = d // num_heads
 
-    def heads(nm):
-        y = x @ p[f"{prefix}.w{nm}"] + p[f"{prefix}.b{nm}"]
-        return y.reshape(*lead, t, num_heads, hd).transpose(-3, -2)
+        def heads(nm):
+            y = x @ p[f"{prefix}.w{nm}"] + p[f"{prefix}.b{nm}"]
+            return y.reshape(*lead, t, num_heads, hd).transpose(-3, -2)
 
-    q, k, v = heads("q"), heads("k"), heads("v")
-    att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-    if causal:
-        mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-        att = att.masked_fill(~mask, float("-inf"))
-    o = (torch.softmax(att, dim=-1) @ v).transpose(-3, -2)
-    return o.reshape(*lead, t, d) @ p[f"{prefix}.wo"] + p[f"{prefix}.bo"]
+        q, k, v = heads("q"), heads("k"), heads("v")
+        att = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+        if causal:
+            mask = torch.ones((t, t), dtype=torch.bool,
+                              device=x.device).tril()
+            att = att.masked_fill(~mask, float("-inf"))
+        o = (torch.softmax(att, dim=-1) @ v).transpose(-3, -2)
+        return o.reshape(*lead, t, d) @ p[f"{prefix}.wo"] + p[f"{prefix}.bo"]
 
 
 def quick_gelu(x):
@@ -134,6 +138,7 @@ def dinov2_forward(params: Params, image: torch.Tensor, num_heads: int,
     x = patchify(image, patch_size) @ params["patch_embed.w"] \
         + params["patch_embed.b"]
     x = torch.cat([params["cls_token"][None], x], dim=0)
+    profiling.count("vit.tokens", x.shape[0])
     x = x + interpolate_pos_embed(params["pos_embed"], (h, w))
     for i in range(int(params["n_blocks"])):
         x = dinov2_block(x, params, i, num_heads)
@@ -206,6 +211,7 @@ def maskclip_forward(params: Params, image: torch.Tensor, num_heads: int,
     h, w = image.shape[0] // patch_size, image.shape[1] // patch_size
     x = patchify(image, patch_size) @ params["visual.patch_embed.w"]
     x = torch.cat([params["visual.class_embedding"][None], x], dim=0)
+    profiling.count("vit.tokens", x.shape[0])
     x = x + interpolate_pos_embed(params["visual.pos_embed"], (h, w))
     x = layer_norm(x, params["visual.ln_pre.scale"],
                    params["visual.ln_pre.bias"], eps=1e-5)
