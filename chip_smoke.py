@@ -2,8 +2,10 @@
 
 Builds the port's CUDA kernels from ``collab_splats_tpu_torch/csrc``
 and holds each against its plain PyTorch version on the card (the fused
-projection, forward and backward, and the SH colours, forward and
-backward, on the bench scene in 2,524,288 rows;
+projection, forward and backward, the SH colours, forward and
+backward, and the train step's update (the finite guard and Adam over
+every group, bit for bit torch's foreach Adam) on the bench scene in
+2,524,288 rows;
 SAM's fused mask upscaling at 64 prompts and at 1, beside the cuDNN chain;
 the
 per-tile pair, which reads each slot's row through the aligned ids, at C = 3
@@ -111,8 +113,9 @@ and no path: per-layer and per-step times are ``benchmark/run.py``'s, with
 ``--trace 1`` for the program's spans and the device trace's breakdown.
 It times each kernel alone at the bench scene's main-path shapes (CUDA
 events, median of REPS), beside its bound at the card's published rates
-and, for kernels 4 and 8, beside the library call in their place
-(``index_add_``, the cuDNN chain).
+and, for kernels 4, 8 and 10, beside the library call in their place
+(``index_add_``, the cuDNN chain, the mask multiply, ``isfinite`` and
+torch's foreach Adam).
 
 Run it from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -160,12 +163,13 @@ from collab_splats_tpu_torch.meshing import exporters, poisson
 from collab_splats_tpu_torch.meshing import transfer as mesh_transfer
 from collab_splats_tpu_torch.models import gaussians, rade_features, rade_gs
 from collab_splats_tpu_torch.ops import rasterize, segsum, tiles
-from collab_splats_tpu_torch.ops.cuda import (batched, binning_kernel, build,
+from collab_splats_tpu_torch.ops.cuda import (adam_update, batched,
+                                              binning_kernel, build,
                                               composite, projection,
                                               sam_upscale, segsum_kernel,
                                               sh_colors)
 from collab_splats_tpu_torch.pipeline.methods import get_method
-from collab_splats_tpu_torch.train import checkpoint, strategy
+from collab_splats_tpu_torch.train import checkpoint, optim, strategy
 from collab_splats_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 # One H100 SXM at its full 700 W limit (NVIDIA's data sheet): the rates
@@ -1299,6 +1303,210 @@ def check_sh_colors(scene):
             **t}
 
 
+# Kernel 10 (csrc/adam_update.cu) at the bench scene's two tables in
+# PROJECT_ROWS rows: rade-gs's six groups (59 floats a row) and
+# rade-features' seven (27 a row; features_rest [N, 0, 3]) with the
+# decoder's tensors.  Bytes an element: the update reads p, g, m and v and
+# writes p, m and v; the guard reads g.  The alive share is the bench
+# scene's, 1M rows of PROJECT_ROWS.
+ADAM_BYTES, ADAM_GUARD_BYTES = 4 * 7, 4
+ADAM_TABLES = {
+    "gs": ({"means": (3,), "features_dc": (3,), "features_rest": (15, 3),
+            "opacities": (1,), "scales": (3,), "quats": (4,)},
+           optim.RADE_GS_GROUPS),
+    "features": ({"means": (3,), "features_dc": (3,),
+                  "features_rest": (0, 3), "opacities": (1,),
+                  "scales": (3,), "quats": (4,),
+                  "distill_features": (13,)},
+                 optim.RADE_FEATURES_GROUPS)}
+ADAM_DECODER = ((64, 13), (64,), (768, 64), (768,), (384, 64), (384,))
+
+
+def adam_table(kind, dev):
+    """(params by group, gradients by group, alive, the Gaussian groups)
+    of ``kind``'s table, seeded."""
+    rows, _ = ADAM_TABLES[kind]
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def draw(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    params = {k: [draw((PROJECT_ROWS,) + w)] for k, w in rows.items()}
+    if kind == "features":
+        params["decoder"] = [draw(s) for s in ADAM_DECODER]
+    grads = {k: [draw(t.shape, 0.1) for t in ts] for k, ts in params.items()}
+    alive = torch.randperm(PROJECT_ROWS, generator=gen, device=dev) \
+        < PROJECT_ROWS * 1_000_000 // 2_524_288
+    return params, grads, alive, list(rows)
+
+
+def masked_grads(opt, grads, alive, masked):
+    """The former path's gradients: dead rows zeroed by a mask multiply,
+    set as each tensor's ``.grad``."""
+    amask = alive.to(torch.float32)
+    for group in opt.param_groups:
+        for p, g in zip(group["params"], grads[group["name"]]):
+            p.grad = g * amask.reshape((-1,) + (1,) * (g.dim() - 1)) \
+                if group["name"] in masked else g
+
+
+def check_adam_update(dev):
+    """Kernel 10 at both tables: ``optim.adam_step`` (the guard and the
+    update) against ``torch.optim.Adam``'s foreach step on the masked
+    gradients over three steps, parameters, moments and step counts bit
+    for bit; then the update alone, twice on copies of the state, against
+    a fourth foreach step (its error over the largest step) and a repeat
+    bit-identical; the guard against its plain version on finite
+    gradients, a NaN in a dead row and an inf in the sink.
+    Then, at each table, the update's and the guard's times over
+    SH_TIMED_LAUNCHES launches beside their bounds and the former chain's
+    (the mask multiply, the ``isfinite`` stack and the foreach step).
+    Returns the gs table's entry fields and every table's errors and
+    times."""
+    out = {}
+    for kind, (_, groups) in ADAM_TABLES.items():
+        params, grads, alive, masked = adam_table(kind, dev)
+
+        def leaves():
+            return {k: [t.clone().requires_grad_(True) for t in ts]
+                    for k, ts in params.items()}
+
+        ref_opt, ref_sched = optim.make_optimizer(leaves(), groups)
+        opt, sched = optim.make_optimizer(leaves(), groups)
+        flat = [g for gs in grads.values() for g in gs]
+        sink = torch.randn((3600, 512, 2), device=dev)
+        with uncounted():
+            for _ in range(3):
+                masked_grads(ref_opt, grads, alive, masked)
+                ref_opt.step()
+                ref_sched.step()
+                ref_opt.zero_grad(set_to_none=True)
+                reset_counts()
+                if not bool(adam_update.all_finite(flat + [sink])):
+                    raise AssertionError(f"adam_finite ({kind}): a finite "
+                                         "step read as non-finite")
+                optim.adam_step(opt, grads, alive, masked)
+                sched.step()
+                torch.cuda.synchronize()
+                if counts() != {k: int(k in ("adam_finite", "adam"))
+                                for k in KERNELS}:
+                    raise AssertionError(f"adam ({kind}): launches "
+                                         f"{counts()}")
+        if opt.state_dict()["state"].keys() != \
+                ref_opt.state_dict()["state"].keys():
+            raise AssertionError(f"adam ({kind}): state keys differ")
+        for ga, gb in zip(ref_opt.param_groups, opt.param_groups):
+            for pa, pb in zip(ga["params"], gb["params"]):
+                sa, sb = ref_opt.state[pa], opt.state[pb]
+                if not (torch.equal(pa, pb) and all(
+                        torch.equal(sa[k], sb[k])
+                        for k in ("step", "exp_avg", "exp_avg_sq"))):
+                    raise AssertionError(
+                        f"adam ({kind}): {ga['name']} differs from torch's "
+                        "foreach Adam")
+
+        # The update alone, twice, against a fourth foreach step.
+        def entries():
+            es = []
+            for group in opt.param_groups:
+                for p, g in zip(group["params"], grads[group["name"]]):
+                    st = opt.state[p]
+                    t = st["step"].item() + 1
+                    es.append(adam_update.AdamEntry(
+                        p.detach().clone(), g, st["exp_avg"].clone(),
+                        st["exp_avg_sq"].clone(), group["name"] in masked,
+                        -(group["lr"] / (1 - 0.9 ** t)),
+                        (1 - 0.999 ** t) ** 0.5, group["eps"]))
+            return es
+
+        start, got, again = entries(), entries(), entries()
+        with uncounted():
+            adam_update.adam_update(got, alive, (0.9, 0.999))
+            adam_update.adam_update(again, alive, (0.9, 0.999))
+        masked_grads(ref_opt, grads, alive, masked)
+        ref_opt.step()
+        ref_opt.zero_grad(set_to_none=True)
+        refs = [(p.detach(), ref_opt.state[p]) for gr in ref_opt.param_groups
+                for p in gr["params"]]
+        err = 0.0
+        for a, b, (rp, rs), s0 in zip(got, again, refs, start):
+            if not a.param.numel():
+                continue
+            if not all(torch.equal(getattr(a, k), getattr(b, k))
+                       for k in ("param", "exp_avg", "exp_avg_sq")):
+                raise AssertionError(f"adam_update ({kind}): a repeat "
+                                     "differs")
+            if not (torch.equal(a.exp_avg, rs["exp_avg"])
+                    and torch.equal(a.exp_avg_sq, rs["exp_avg_sq"])):
+                raise AssertionError(f"adam_update ({kind}): moments differ "
+                                     "from torch's foreach Adam")
+            step = float((rp - s0.param).abs().max())
+            e = float((a.param - rp).abs().max()) / step
+            if e > 1e-5:
+                raise AssertionError(f"adam_update ({kind}): parameters "
+                                     f"{e:.3g} of the largest step off")
+            err = max(err, e)
+        del got, again, refs
+        with uncounted():
+            bad = [g.clone() for g in flat]
+            bad[0][int(torch.nonzero(~alive)[0]), 0] = float("nan")
+            sink_bad = sink.clone()
+            sink_bad[5, 7, 1] = float("inf")
+            cases = ((flat + [sink], True), (bad + [sink], False),
+                     (flat + [sink_bad], False))
+            # The guard's error: the share of cases where the kernel's
+            # flag differs from the plain version's.
+            card = [bool(adam_update.all_finite(xs)) for xs, _ in cases]
+            plain = [bool(adam_update.all_finite_plain(xs))
+                     for xs, _ in cases]
+            if plain != [want for _, want in cases]:
+                raise AssertionError(f"adam_finite ({kind}): the plain "
+                                     f"guard read {plain}")
+            guard_err = sum(k != q for k, q in zip(card, plain)) \
+                / len(cases)
+            if guard_err:
+                raise AssertionError(f"adam_finite ({kind}): read {card} "
+                                     f"where the plain guard read {plain}")
+            del bad, sink_bad
+            t = {"ms": mean_ms(lambda: adam_update.adam_update(
+                    start, alive, (0.9, 0.999))),
+                 "guard_ms": mean_ms(
+                     lambda: adam_update.all_finite(flat + [sink]))}
+
+        def former():
+            masked_grads(ref_opt, grads, alive, masked)
+            finite = torch.stack(
+                [torch.isfinite(p.grad).all() for gr in ref_opt.param_groups
+                 for p in gr["params"]] + [torch.isfinite(sink).all()]).all()
+            ref_opt.step()
+            return finite
+
+        t["library_ms"] = mean_ms(former)
+        t["foreach_ms"] = mean_ms(ref_opt.step)
+        elems = sum(t_.numel() for ts in params.values() for t_ in ts)
+        t["bound"] = bound(ADAM_BYTES * elems, 12 * elems)
+        t["guard_bound"] = bound(ADAM_GUARD_BYTES * (elems + sink.numel()), 0)
+        say(f"parity adam_update ({kind}, {PROJECT_ROWS} rows, {elems} "
+            f"elements): three steps of optim.adam_step bit-identical to "
+            f"torch's foreach Adam on the masked gradients; the update "
+            f"alone against a fourth: moments equal, parameters {err:.3g} "
+            f"of the largest step off; repeat bit-identical; the guard "
+            f"against its plain version {guard_err:.3g} of 3 cases off "
+            f"(finite, a NaN in a dead row, an inf in the sink); two "
+            f"launches a step")
+        say(f"adam_update times ({kind}, CUDA events over "
+            f"{SH_TIMED_LAUNCHES} launches, ms): update {t['ms']:.4f} "
+            f"(bound {t['bound'][0]:.4f} by {t['bound'][1]}), guard "
+            f"{t['guard_ms']:.4f} (bound {t['guard_bound'][0]:.4f} by "
+            f"{t['guard_bound'][1]}); the former chain (mask, isfinite, "
+            f"foreach Adam) {t['library_ms']:.4f}, foreach Adam alone "
+            f"{t['foreach_ms']:.4f}")
+        out[kind] = {"err": err, "guard_err": guard_err, **t}
+        del params, grads, flat, sink, opt, ref_opt, start
+        torch.cuda.empty_cache()
+    return out
+
+
 # SAM's mask upscaling: float32 operations per image-feature pixel (the
 # two products, 256 x 256 and 4 x 64 x 128, and 16 x 32 x 4 of the mask
 # product, two each), and the prompt batches it is checked at (timed at the
@@ -1696,7 +1904,8 @@ def progressive_phase(data, dev):
                          resolution_schedule=PROG_SCHEDULE)
     full = tr.cameras[0]
     per_step = {"decode": 1, "composite": 1, "composite_bwd": 1,
-                "segment_sum": 2, "project": 1, "project_bwd": 1}
+                "segment_sum": 2, "project": 1, "project_bwd": 1,
+                "adam_finite": 1, "adam": 1}
     total = dict.fromkeys(counts(), 0)
     rows, factors = [], []
     for _ in range(PROG_STEPS):
@@ -1747,7 +1956,8 @@ KERNELS = {"decode": "decode_bin_keys", "composite": "composite_batched_fwd",
            "composite_tiles": "composite_tiles_fwd",
            "composite_tiles_bwd": "composite_tiles_bwd_call",
            "project": "project_fwd", "project_bwd": "project_bwd",
-           "sam_upscale": "sam_upscale", "sh": "sh_fwd", "sh_bwd": "sh_bwd"}
+           "sam_upscale": "sam_upscale", "sh": "sh_fwd", "sh_bwd": "sh_bwd",
+           "adam_finite": "adam_finite", "adam": "adam_update"}
 
 
 def counts():
@@ -1804,9 +2014,10 @@ def train_main_path(tr, steps, refine_at):
 def check_training(hist, launches, refine_at, reg_from, per_step):
     """Finite losses, the depth-normal phase from ``reg_from``, the launch
     counts ``per_step`` (and kernel 7's projection, forward and backward,
-    once each) times the steps, and a refine pass that duplicated, split
-    and culled."""
-    per_step = dict(per_step, project=1, project_bwd=1)
+    and kernel 10's guard and update, once each) times the steps, and a
+    refine pass that duplicated, split and culled."""
+    per_step = dict(per_step, project=1, project_bwd=1, adam_finite=1,
+                    adam=1)
     steps = len(hist)
     for i, h in enumerate(hist):
         if not math.isfinite(h["loss"]) or h["nonfinite_grad"] != 0:
@@ -2740,7 +2951,7 @@ def tower_path(fdata, dev, vertex_latents, ckpt_decoder, tmp, weights):
     want.update(decode=n_steps + 1 + len(gcams),
                 composite=n_steps + 1 + len(gcams), composite_bwd=n_steps,
                 segment_sum=2 * n_steps, project=n_steps + 1 + len(gcams),
-                project_bwd=n_steps,
+                project_bwd=n_steps, adam_finite=n_steps, adam=n_steps,
                 sam_upscale=sum(1 for n in prompt_batches if n))
     if launches != want or want["sam_upscale"] == 0:
         raise AssertionError(f"path 8: launches {launches}, expected {want} "
@@ -3035,7 +3246,8 @@ def options_path(dev, weights_dir):
                     composite_bwd=OPTIONS_STEPS,
                     segment_sum=2 * OPTIONS_STEPS,
                     project=OPTIONS_STEPS + evals, project_bwd=OPTIONS_STEPS,
-                    sh=OPTIONS_STEPS + evals, sh_bwd=OPTIONS_STEPS)
+                    sh=OPTIONS_STEPS + evals, sh_bwd=OPTIONS_STEPS,
+                    adam_finite=OPTIONS_STEPS, adam=OPTIONS_STEPS)
         if launches != want:
             raise AssertionError(f"path 9: launches {launches}, expected "
                                  f"{want}")
@@ -3210,7 +3422,8 @@ def _pipeline_path(dev, root):
     want = {k: 0 for k in train_launches}
     want.update(decode=n_steps, composite=n_steps, composite_bwd=n_steps,
                 segment_sum=2 * n_steps, project=n_steps,
-                project_bwd=n_steps, sh=n_steps, sh_bwd=n_steps)
+                project_bwd=n_steps, sh=n_steps, sh_bwd=n_steps,
+                adam_finite=n_steps, adam=n_steps)
     if train_launches != want:
         raise AssertionError(f"path 10 training: launches {train_launches},"
                              f" expected {want}")
@@ -3302,7 +3515,8 @@ def _pipeline_path(dev, root):
                              f"{text[-400:]}")
     launches = counts()
     for k in ("decode", "composite", "composite_bwd", "segment_sum",
-              "project", "project_bwd", "sh", "sh_bwd"):
+              "project", "project_bwd", "sh", "sh_bwd", "adam_finite",
+              "adam"):
         if launches[k] == 0:
             raise AssertionError(f"path 10: {k} never launched")
     say(f"main path 10 (Splatter on a bench-scale dataset: 10 cameras at "
@@ -3692,7 +3906,8 @@ def golden_path(dev):
                 segment_sum=2 * ANALYTIC_STEPS, composite_tiles=1,
                 project=ANALYTIC_STEPS + renders_done + 2,
                 project_bwd=ANALYTIC_STEPS, sh=ANALYTIC_STEPS + renders_done,
-                sh_bwd=ANALYTIC_STEPS)
+                sh_bwd=ANALYTIC_STEPS, adam_finite=ANALYTIC_STEPS,
+                adam=ANALYTIC_STEPS)
     if launches != want:
         raise AssertionError(f"path 12: launches {launches}, expected "
                              f"{want}")
@@ -3735,16 +3950,19 @@ SCALE_KILL_AT = 2400
 SCALE_MESH_AT = 3000
 SCALE_FEATURE_STEPS = 500
 SCALE_PER_STEP = {"decode": 1, "composite": 1, "composite_bwd": 1,
-                  "segment_sum": 2, "project": 1, "project_bwd": 1}
+                  "segment_sum": 2, "project": 1, "project_bwd": 1,
+                  "adam_finite": 1, "adam": 1}
 
 
 def scale_launches(steps, renders, skipped=0, sh_degree=3):
     """Launches of ``steps`` train steps (``skipped`` of them non-finite,
-    whose statistics are not summed) and ``renders`` evaluation renders;
-    kernel 9's where the model's ``sh_degree`` is above 0."""
+    whose statistics are not summed and whose update does not run) and
+    ``renders`` evaluation renders; kernel 9's where the model's
+    ``sh_degree`` is above 0."""
     want = {k: 0 for k in counts()}
     want.update({k: v * steps for k, v in SCALE_PER_STEP.items()})
     want["segment_sum"] -= skipped
+    want["adam"] -= skipped
     want["decode"] += renders
     want["composite"] += renders
     want["project"] += renders
@@ -3963,6 +4181,7 @@ def main() -> int:
         check_pallas_vs_xla(name, sc)
     proj_rec = check_projection(scenes["bench"])
     sh_rec = check_sh_colors(scenes["bench"])
+    adam_rec = check_adam_update(dev)
     with uncounted():
         up_rec = check_sam_upscale(dev)
     seg_err = check_segsum(
@@ -4186,6 +4405,12 @@ def main() -> int:
                sh_rec["plain_fwd_ms"]),
         "sh_bwd": (sh_rec["sh_bwd_ms"], sh_rec["sh_bwd_bound"],
                    sh_rec["plain_bwd_ms"]),
+        # Kernel 10 at the rade-gs table, over SH_TIMED_LAUNCHES launches;
+        # the former chain (mask, isfinite, foreach Adam) beside the update.
+        "adam_finite": (adam_rec["gs"]["guard_ms"],
+                        adam_rec["gs"]["guard_bound"], None),
+        "adam": (adam_rec["gs"]["ms"], adam_rec["gs"]["bound"],
+                 adam_rec["gs"]["library_ms"]),
     }
 
     # The kernels line, at the bench scene's shapes (the RaDe-GS steps);
@@ -4216,7 +4441,9 @@ def main() -> int:
     rel_errs = {"project": proj_rec["fwd_err"],
                 "project_bwd": proj_rec["bwd_err"],
                 "sam_upscale": up_rec["err"], "sh": sh_rec["fwd_err"],
-                "sh_bwd": sh_rec["bwd_err"]}
+                "sh_bwd": sh_rec["bwd_err"],
+                "adam_finite": max(r["guard_err"] for r in adam_rec.values()),
+                "adam": max(r["err"] for r in adam_rec.values())}
     kernels = []
     for key, src, tpu in (
             ("decode", "binning_kernel.cu", "binning_kernel.py:172"),
@@ -4230,7 +4457,11 @@ def main() -> int:
             # Kernel 8's plain version on the card is the cuDNN chain,
             # kernel 9's the einsum's autograd chain.
             ("sam_upscale", "sam_upscale.cu", None),
-            ("sh", "sh_colors.cu", None), ("sh_bwd", "sh_colors.cu", None)):
+            ("sh", "sh_colors.cu", None), ("sh_bwd", "sh_colors.cu", None),
+            # Kernel 10's update error is over the largest step, its
+            # guard's the share of cases read otherwise than plainly.
+            ("adam_finite", "adam_update.cu", None),
+            ("adam", "adam_update.cu", None)):
         ms, (bound_ms, bound_by), library_ms = timed[key]
         if key in rel_errs:
             err = {"max_err_over_max_ref": rel_errs[key]}

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("binning_kernel", "batched_fwd", "batched_bwd", "segsum_kernel",
            "composite_fwd", "composite_bwd", "projection", "sam_upscale",
-           "sh_colors")
+           "sh_colors", "adam_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

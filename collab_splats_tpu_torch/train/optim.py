@@ -9,15 +9,24 @@ group's rate by its schedule.  optax's schedule counts from 0 at the first
 update, and so does ``LambdaLR``.  optax divides by ``sqrt(nu / (1 -
 b2^t)) + eps`` where torch divides by ``sqrt(nu) / sqrt(1 - b2^t) + eps``:
 the same function, rounded otherwise.
+
+The trainer steps it with :func:`adam_step`, the dead rows' gradients of
+the Gaussian groups zeroed: on the card one kernel updates every group in
+the optimizer's own state (``ops/cuda/adam_update.py``), on the CPU
+``optimizer.step()`` runs on the masked gradients.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence, Union
+from typing import (Callable, Collection, Dict, Mapping, Optional, Sequence,
+                    Union)
 
 import torch
+
+from ..ops.cuda import adam_update
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +94,68 @@ def make_optimizer(
         factors.append(lambda step, f=nerfstudio_exponential_decay(spec),
                        lr=spec.lr: f(step) / lr)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factors)
+
+
+def adam_step(optimizer: torch.optim.Adam,
+              grads: Mapping[str, Sequence[Optional[torch.Tensor]]],
+              alive: torch.Tensor, masked: Collection[str]) -> int:
+    """One step of ``optimizer`` with ``grads``, each group's gradients by
+    its name in the order of its tensors (None: zeros); the groups named in
+    ``masked`` hold Gaussian rows, whose gradients are zeroed where
+    ``alive`` is false.  On the card it is one launch of kernel 10 over
+    every tensor, in place in the optimizer's state, which is created and
+    whose step counts advance as ``optimizer.step()`` does them (plain Adam
+    only: no weight decay, amsgrad or maximize); on the CPU the masked
+    gradients go through ``optimizer.step()``.  Returns the elements
+    updated."""
+    fused = 0
+    if alive.device.type == "cuda":
+        fused = _fused_step(optimizer, grads, alive, masked)
+    else:
+        amask = alive.to(torch.float32)
+        for group in optimizer.param_groups:
+            for p, g in zip(group["params"], grads[group["name"]],
+                            strict=True):
+                g = torch.zeros_like(p) if g is None else g
+                if group["name"] in masked:
+                    g = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
+                p.grad = g
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+    elems = sum(p.numel() for group in optimizer.param_groups
+                for p in group["params"])
+    profiling.count("train.adam_elems", elems)
+    profiling.count("train.adam_fused_elems", fused)
+    return elems
+
+
+def _fused_step(optimizer, grads, alive, masked) -> int:
+    states, entries, betas = [], [], set()
+    for group in optimizer.param_groups:
+        if group["amsgrad"] or group["weight_decay"] or group["maximize"]:
+            raise ValueError("adam_step: plain Adam only")
+        beta1, beta2 = group["betas"]
+        betas.add((beta1, beta2))
+        for p, g in zip(group["params"], grads[group["name"]], strict=True):
+            state = optimizer.state.get(p) or {
+                "step": torch.tensor(0.0, dtype=torch.float32),
+                "exp_avg": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(
+                    p, memory_format=torch.preserve_format)}
+            states.append((p, state))
+            t = state["step"].item() + 1
+            entries.append(adam_update.AdamEntry(
+                p.detach(), g, state["exp_avg"], state["exp_avg_sq"],
+                group["name"] in masked, -(group["lr"] / (1 - beta1 ** t)),
+                (1 - beta2 ** t) ** 0.5, group["eps"]))
+    if len(betas) != 1:
+        raise ValueError(f"adam_step: one pair of betas, got {betas}")
+    fused = adam_update.adam_update(entries, alive, betas.pop())
+    for p, state in states:
+        state["step"] += 1
+        optimizer.state[p] = state
+    return fused
 
 
 def group_param(optimizer: torch.optim.Optimizer, name: str) -> torch.Tensor:

@@ -2,10 +2,12 @@
 
 Counterpart of the JAX package's ``train/trainer.py``.  One step renders a
 camera, takes the loss and its backward (the rasterizer's screen-space sink
-rides the same backward), zeroes the gradients of dead capacity rows,
-skips the update when any gradient is not finite, and otherwise runs the
-per-group Adam and accumulates the densification statistics (per window
-slot, or per intersection with ``backend="pallas"``).  With per-camera
+rides the same backward), skips the update when any gradient is not
+finite, and otherwise runs Adam over every group at once with the
+gradients of dead capacity rows zeroed (``optim.adam_step``: on the card
+one guard and one update kernel a step) and accumulates the densification
+statistics (per window slot, or per intersection with
+``backend="pallas"``).  With per-camera
 ground-truth feature maps it trains rade-features: the loss adds the
 decoded latents' cosine distillation and the decoder is one more Adam
 group.  Around the step, the host-side schedule of the reference: refine
@@ -47,6 +49,7 @@ from ..core.cameras import Camera
 from ..features import decoder as decoder_lib
 from ..models import rade_features, rade_gs
 from ..models.gaussians import GaussianParams, grow_capacity, num_alive
+from ..ops.cuda import adam_update
 from ..ops.rasterize import absgrad_sink_shape, pallas_sink_shape
 from ..utils import lpips as lp
 from ..utils import profiling
@@ -306,40 +309,30 @@ class Trainer:
                 pallas: bool) -> torch.Tensor:
         """The guard, Adam and the densification statistics of a step's
         gradients; returns the finite flag the guard decided on."""
-        params, cparams = self.params, self.camera_params
         sink_grad = grads[-1]
         nparams = len(names) + len(cnames)
         with profiling.span("train.guard"):
-            # Dead rows must not move: zero their gradients exactly.
-            amask = self.alive.to(torch.float32)
-            pgrads = {}
-            for k, g in zip(names, grads[:len(names)]):
-                g = torch.zeros_like(params[k]) if g is None else g
-                pgrads[k] = g * amask.reshape((-1,) + (1,) * (g.dim() - 1))
-            for k, g in zip(cnames, grads[len(names):nparams]):
-                pgrads[k] = torch.zeros_like(cparams[k]) if g is None else g
-            dgrads = [torch.zeros_like(p) if g is None else g
-                      for p, g in zip(dparams, grads[nparams:-1])]
-
             # Non-finite guard: one degenerate splat's inf/NaN gradient
             # would poison every Adam moment, so such a step is skipped
             # (parameters, decoder, optimizer and statistics keep their
-            # values) and counted.  Taking the decision costs one host
-            # read of this flag per step.
-            finite = torch.stack([
-                torch.isfinite(g).all()
-                for g in [*pgrads.values(), *dgrads, sink_grad]]).all()
+            # values) and counted.  A dead row's gradient is zeroed before
+            # Adam, and isfinite(g * 0) is isfinite(g): the guard reads the
+            # raw gradients.  Taking the decision costs one host read of
+            # this flag per step.
+            finite = adam_update.all_finite(grads)
             with profiling.span("sync.finite"):
                 ok = bool(finite)
         if ok:
             with profiling.span("train.adam"):
-                for k, g in pgrads.items():
-                    (params[k] if k in params else cparams[k]).grad = g
-                for p, g in zip(dparams, dgrads):
-                    p.grad = g
-                self.optimizer.step()
+                # Dead rows must not move: the Gaussian groups' gradients
+                # are zeroed inside the update.
+                by_group = {k: [g] for k, g in
+                            zip(names + cnames, grads[:nparams])}
+                if dparams:
+                    by_group["decoder"] = list(grads[nparams:-1])
+                optim.adam_step(self.optimizer, by_group, self.alive,
+                                masked=names)
                 self.scheduler.step()
-                self.optimizer.zero_grad(set_to_none=True)
             with profiling.span("train.strategy"):
                 update = strategy.update_state_from_isect if pallas \
                     else strategy.update_state
