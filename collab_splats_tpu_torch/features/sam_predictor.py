@@ -24,11 +24,12 @@ dict format (segmentation, area, bbox, predicted_iou, stability_score),
 which ``features/grouping.py`` consumes.
 
 Spans (``utils/profiling.py``): ``sam.image`` (one ``auto_segment``),
-``sam.encode`` (``set_image``), ``sam.decode`` (one prompt batch),
-``sam.filter`` (the automatic masks' filter and NMS), ``sync.sam`` (each
-read of the host); counters ``sam.prompts``, ``sam.masks``,
+``sam.encode`` (``set_image``), ``sam.decode`` (one prompt or box batch),
+``sam.filter`` (the automatic masks' filter and NMS), ``sam.boxes`` (the
+box masks' upscaling, areas and boxes), ``sync.sam`` (each read of the
+host); counters ``sam.prompts`` (points or boxes decoded), ``sam.masks``,
 ``sam.candidates`` (masks past IoU, stability and ``min_area``) and
-``sam.kept``.
+``sam.kept`` (masks returned).
 """
 
 from __future__ import annotations
@@ -189,12 +190,25 @@ class SamBackend:
     def predict_boxes(self, boxes_xyxy: np.ndarray
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """[B, 4] boxes in original pixels -> ([B, H, W] bool, [B] iou)."""
+        low, iou = self._decode_boxes(boxes_xyxy)
+        masks = S.postprocess_masks(low, self._orig_hw, self._input_hw)
+        return (masks[:, 0] > 0.0).cpu().numpy(), iou[:, 0].cpu().numpy()
+
+    @torch.no_grad()
+    def predict_boxes_low(self, boxes_xyxy: np.ndarray
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """[B, 4] boxes -> ([B, 256, 256] raw logits, [B] iou), not
+        upscaled."""
+        low, iou = self._decode_boxes(boxes_xyxy)
+        return low[:, 0].cpu().numpy(), iou[:, 0].cpu().numpy()
+
+    def _decode_boxes(self, boxes_xyxy: np.ndarray):
+        """[B, 4] boxes in original pixels -> ([B, 1, 256, 256] logits,
+        [B, 1] iou) on the device."""
         assert self._embedding is not None, "call set_image first"
         boxes = torch.as_tensor(np.asarray(boxes_xyxy, np.float32),
                                 device=self.device) * self._scale
-        low, iou = self._decode(S.encode_boxes(self.params, boxes), False)
-        masks = S.postprocess_masks(low, self._orig_hw, self._input_hw)
-        return (masks[:, 0] > 0.0).cpu().numpy(), iou[:, 0].cpu().numpy()
+        return self._decode(S.encode_boxes(self.params, boxes), False)
 
     @torch.no_grad()
     def predict_points(
@@ -229,34 +243,50 @@ class SamBackend:
                             multimask)
 
     # ----------------------------------------------------------- reference
+    @torch.no_grad()
     def segment_boxes(self, image: np.ndarray, boxes_xyxy: np.ndarray,
                       confs: Optional[np.ndarray] = None,
                       batch_size: int = 64) -> List[Dict]:
-        """Box-prompted segmentation in the reference's result format."""
+        """Box-prompted segmentation in the reference's result format: one
+        mask a box, decoded ``batch_size`` boxes at a time, upscaled to the
+        image, its area and box taken on the device; empty masks are
+        dropped, the rest keep the boxes' order.  The host reads once: the
+        non-empty masks and their numbers."""
         self.set_image(image)
-        results: List[Dict] = []
         h, w = image.shape[:2]
-        confs = np.ones(len(boxes_xyxy)) if confs is None else confs
-        for s0 in range(0, len(boxes_xyxy), batch_size):
-            masks, ious = self.predict_boxes(boxes_xyxy[s0 : s0 + batch_size])
-            for mask, iou, conf in zip(
-                masks, ious, confs[s0 : s0 + batch_size]
-            ):
-                area = int(mask.sum())
-                if area == 0:
-                    continue
-                ys, xs = np.where(mask)
-                results.append({
-                    "segmentation": mask,
-                    "area": area,
-                    "bbox": [int(xs.min()), int(ys.min()),
-                             int(xs.max() - xs.min()), int(ys.max() - ys.min())],
-                    "predicted_iou": float(iou),
-                    "point_coords": [],
-                    "stability_score": float(conf),
-                    "crop_box": [0, 0, w, h],
-                })
-        return results
+        n = len(boxes_xyxy)
+        confs = np.ones(n) if confs is None else confs
+        lows, ious = [], []
+        for s0 in range(0, n, batch_size):
+            with profiling.span("sam.decode"):
+                low, iou = self._decode_boxes(boxes_xyxy[s0 : s0 + batch_size])
+            lows.append(low)
+            ious.append(iou[:, 0])
+        profiling.count("sam.prompts", n)
+        if n == 0:
+            profiling.count("sam.kept", 0)
+            return []
+        with profiling.span("sam.boxes"):
+            masks = torch.empty((n, h, w), dtype=torch.bool,
+                                device=self.device)
+            for s0, low in zip(range(0, n, batch_size), lows):
+                up = S.postprocess_masks(low, self._orig_hw, self._input_hw)
+                masks[s0 : s0 + len(low)] = up[:, 0] > 0.0
+            area, box = _mask_numbers(masks)
+            nums = torch.cat([torch.cat(ious).double()[:, None],
+                              area.double()[:, None], box.double()], 1)
+        with profiling.span("sync.sam"):
+            kept = torch.nonzero(area > 0).flatten()
+            nums = nums[kept].cpu().numpy()
+            segs = masks[kept].cpu().numpy()
+            kept = kept.cpu().numpy()
+        profiling.count("sam.kept", len(kept))
+        return [{
+            "segmentation": seg, "area": int(num[1]),
+            "bbox": [int(v) for v in num[2:]],
+            "predicted_iou": float(num[0]), "point_coords": [],
+            "stability_score": float(confs[j]), "crop_box": [0, 0, w, h],
+        } for j, seg, num in zip(kept, segs, nums)]
 
     @torch.no_grad()
     def auto_segment(self, image: np.ndarray,
@@ -268,6 +298,7 @@ class SamBackend:
         the host reads twice: which masks pass the quality filter, then
         the kept masks with their numbers."""
         cfg = config or AutoMaskConfig()
+        # Inside the object path's ``sam.image`` this span is that one.
         with profiling.span("sam.image"):
             self.set_image(image)
             h, w = image.shape[:2]
@@ -295,6 +326,20 @@ def _stability(low: torch.Tensor, offset: float) -> torch.Tensor:
     inter = (low > offset).sum(dim=(2, 3)).double()
     union = (low > -offset).sum(dim=(2, 3)).double()
     return inter / torch.clamp(union, min=1.0)
+
+
+def _mask_numbers(masks: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The areas [N] (int64) and XYWH boxes [N, 4] (int64; garbage for an
+    empty mask) of [N, H, W] bool masks, on their device."""
+    _, h, w = masks.shape
+    area = masks.sum(dim=(1, 2))
+    rows, cols = masks.any(dim=2), masks.any(dim=1)
+    y0 = torch.argmax(rows.to(torch.uint8), dim=1)
+    y1 = h - 1 - torch.argmax(rows.flip(1).to(torch.uint8), dim=1)
+    x0 = torch.argmax(cols.to(torch.uint8), dim=1)
+    x1 = w - 1 - torch.argmax(cols.flip(1).to(torch.uint8), dim=1)
+    return area, torch.stack([x0, y0, x1 - x0, y1 - y0], dim=1)
 
 
 def filter_masks(lows: List[torch.Tensor], ious: List[torch.Tensor],
@@ -339,7 +384,7 @@ def filter_masks(lows: List[torch.Tensor], ious: List[torch.Tensor],
                                  orig_hw, input_hw)
         masks[s0 : s0 + _UPSCALE_BATCH] = up[:, 0] > 0.0
     del surv
-    area = masks.sum(dim=(1, 2))                            # [S] int64
+    area, box = _mask_numbers(masks)                        # [S], [S, 4]
     cand = ~(area < cfg.min_area)
     profiling.count("sam.candidates", cand.sum())
     sel = torch.as_tensor(flat, device=dev)
@@ -354,14 +399,8 @@ def filter_masks(lows: List[torch.Tensor], ious: List[torch.Tensor],
     keep = cand[order].clone()
     for i in range(n):
         keep[i] &= ~torch.any(sup[i] & keep)
-    rows, cols = masks.any(dim=2), masks.any(dim=1)
-    y0 = torch.argmax(rows.to(torch.uint8), dim=1)
-    y1 = h - 1 - torch.argmax(rows.flip(1).to(torch.uint8), dim=1)
-    x0 = torch.argmax(cols.to(torch.uint8), dim=1)
-    x1 = w - 1 - torch.argmax(cols.flip(1).to(torch.uint8), dim=1)
-    nums = torch.stack([s_iou, stab.flatten()[sel], area.double(),
-                        x0.double(), y0.double(), (x1 - x0).double(),
-                        (y1 - y0).double()], dim=1)
+    nums = torch.cat([torch.stack([s_iou, stab.flatten()[sel],
+                                   area.double()], dim=1), box.double()], 1)
     with profiling.span("sync.sam"):
         kept = order[torch.nonzero(keep).flatten()]
         nums = nums[kept].cpu().numpy()

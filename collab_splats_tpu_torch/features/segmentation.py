@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .decoder import resize_bilinear
 
 
@@ -222,13 +223,15 @@ def object_segment_image(sam, detector, auto_mask=None
                          ) -> Callable[[np.ndarray], List[Dict]]:
     """The reference's ``object_segment_image`` path as a backend: the
     detector's boxes prompt SAM; with no box, SAM's point-grid masks
-    under ``auto_mask`` (an ``AutoMaskConfig``, its defaults if None)."""
+    under ``auto_mask`` (an ``AutoMaskConfig``, its defaults if None).
+    A frame is the span ``sam.image``, the detector's part included."""
     def backend(image):
-        boxes, confs = detector(image)
-        if len(boxes) == 0:
-            return sam.auto_segment(image) if auto_mask is None \
-                else sam.auto_segment(image, auto_mask)
-        return sam.segment_boxes(image, boxes, confs)
+        with profiling.span("sam.image"):
+            boxes, confs = detector(image)
+            if len(boxes) == 0:
+                return sam.auto_segment(image) if auto_mask is None \
+                    else sam.auto_segment(image, auto_mask)
+            return sam.segment_boxes(image, boxes, confs)
 
     return backend
 
@@ -242,12 +245,16 @@ class Segmentation:
     the SAM and YOLO towers run on ``device`` (the card by default).
     ``sam_model`` names SAM's encoder (``sam_predictor.SAM_ENCODERS``; its
     ``sam_<model>.npz`` is looked for and checked, ``sam_vit_b.npz`` as it
-    is without a name), ``auto_mask`` the point grid's settings (an
-    ``AutoMaskConfig``).  ``sam`` is the SAM backend it built, if any."""
+    is without a name), ``yolo_model`` the detector's scale
+    (``yolo.YOLO_SCALES``; ``yolov8_objaware.npz`` is checked against it,
+    taken as it is without a name), ``auto_mask`` the point grid's
+    settings (an ``AutoMaskConfig``).  ``sam`` and ``detector`` are the
+    SAM backend and the detector it built, if any."""
 
     def __init__(self, backend: Optional[object] = None, device=None,
-                 sam_model: Optional[str] = None, auto_mask=None):
-        self.sam = None
+                 sam_model: Optional[str] = None, auto_mask=None,
+                 yolo_model: Optional[str] = None):
+        self.sam = self.detector = None
         if backend is None:
             from .sam_predictor import SamBackend, sam_available
             from .yolo import ObjectAwareDetector, yolo_available
@@ -255,8 +262,10 @@ class Segmentation:
             if sam_available(sam_model):
                 self.sam = SamBackend(device=device, model=sam_model)
             if self.sam is not None and yolo_available():
-                backend = object_segment_image(
-                    self.sam, ObjectAwareDetector(device=device), auto_mask)
+                self.detector = ObjectAwareDetector(device=device,
+                                                    model=yolo_model)
+                backend = object_segment_image(self.sam, self.detector,
+                                               auto_mask)
             elif self.sam is not None:
                 backend = functools.partial(self.sam.auto_segment,
                                             config=auto_mask)

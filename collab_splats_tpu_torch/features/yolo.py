@@ -15,6 +15,15 @@ n/s/m/l/x scales.
   level's stride around the cell centres; class scores through a sigmoid;
 * class-agnostic greedy NMS on the host (``nms_boxes``, numpy as in JAX).
 
+A detector names its scale (``"n"`` ... ``"x"``: ultralytics' released
+YOLOv8 scales, :data:`YOLO_SCALES`) and refuses a file of other widths or
+depths, or takes the file as it is without a name.
+
+Spans (``utils/profiling.py``): ``yolo.detect`` (letterbox and forward),
+``sync.yolo`` (the one read of the boxes and scores), ``yolo.nms`` (the
+thresholds and NMS on the host); counters ``yolo.anchors``,
+``yolo.passed`` (past ``conf``) and ``yolo.kept`` (after NMS).
+
 JAX works in NHWC; this module runs the convolutions in NCHW
 (``F.conv2d``, TF32 off) and takes and returns JAX's layouts at its
 boundary.  The detector runs on its ``device``, the card unless the caller
@@ -23,12 +32,14 @@ passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import math
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .decoder import resize_bilinear
 from .vit import load_params
@@ -39,9 +50,94 @@ IMG_SIZE = 640  # ultralytics default imgsz; inputs are letterboxed to this
 REG_MAX = 16
 Params = Dict[str, torch.Tensor]
 
+# Ultralytics' YOLOv8 scales (ultralytics/cfg/models/v8/yolov8.yaml):
+# (depth multiple, width multiple, max channels).
+YOLO_SCALES: Dict[str, Tuple[float, float, int]] = {
+    "n": (0.33, 0.25, 1024),
+    "s": (0.33, 0.50, 1024),
+    "m": (0.67, 0.75, 768),
+    "l": (1.00, 1.00, 512),
+    "x": (1.00, 1.25, 512),
+}
+
 
 def yolo_available() -> bool:
     return find_weights("yolov8_objaware.npz") is not None
+
+
+def scale_shapes(model: str, nc: int = 1, reg_max: int = REG_MAX
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """Every weight's shape (HWIO, and its bias) of the detect model at
+    the named scale, as ``yolov8.yaml`` builds it (widths rounded up to
+    multiples of 8, repeats ``max(round(n * depth), 1)``) and
+    ``scripts/convert_yolo.py`` lays it out."""
+    depth, width, max_ch = YOLO_SCALES[model]
+
+    def wide(c):
+        return int(math.ceil(min(c, max_ch) * width / 8) * 8)
+
+    def rep(n):
+        return max(round(n * depth), 1) if n > 1 else n
+
+    out: Dict[str, Tuple[int, ...]] = {}
+
+    def conv(pre, cin, cout, k):
+        out[f"{pre}.w"], out[f"{pre}.b"] = (k, k, cin, cout), (cout,)
+
+    def c2f(pre, cin, cout, n):
+        c = cout // 2
+        conv(f"{pre}.cv1", cin, 2 * c, 1)
+        for j in range(n):
+            conv(f"{pre}.m.{j}.cv1", c, c, 3)
+            conv(f"{pre}.m.{j}.cv2", c, c, 3)
+        conv(f"{pre}.cv2", (2 + n) * c, cout, 1)
+
+    c0, c1, c2, c3, c4 = (wide(c) for c in (64, 128, 256, 512, 1024))
+    conv("0", 3, c0, 3)
+    conv("1", c0, c1, 3)
+    c2f("2", c1, c1, rep(3))
+    conv("3", c1, c2, 3)
+    c2f("4", c2, c2, rep(6))
+    conv("5", c2, c3, 3)
+    c2f("6", c3, c3, rep(6))
+    conv("7", c3, c4, 3)
+    c2f("8", c4, c4, rep(3))
+    conv("9.cv1", c4, c4 // 2, 1)
+    conv("9.cv2", c4 // 2 * 4, c4, 1)
+    c2f("12", c4 + c3, c3, rep(3))
+    c2f("15", c3 + c2, c2, rep(3))
+    conv("16", c2, c2, 3)
+    c2f("18", c2 + c3, c3, rep(3))
+    conv("19", c3, c3, 3)
+    c2f("21", c3 + c4, c4, rep(3))
+    box = max(16, c2 // 4, 4 * reg_max)
+    cls = max(c2, min(nc, 100))
+    for lvl, cin in enumerate((c2, c3, c4)):
+        for branch, mid, last in (("cv2", box, 4 * reg_max),
+                                  ("cv3", cls, nc)):
+            conv(f"22.{branch}.{lvl}.0", cin, mid, 3)
+            conv(f"22.{branch}.{lvl}.1", mid, mid, 3)
+            conv(f"22.{branch}.{lvl}.2", mid, last, 1)
+    return out
+
+
+def check_scale(arrays: Mapping, model: str) -> None:
+    """Raise unless the weights hold exactly the named scale's convolutions
+    at its widths (any number of classes)."""
+    if model not in YOLO_SCALES:
+        raise ValueError(f"unknown YOLOv8 scale {model!r}; the port knows "
+                         f"{sorted(YOLO_SCALES)}")
+    last = "22.cv3.0.2.w"
+    want = scale_shapes(model, int(arrays[last].shape[-1])
+                        if last in arrays else 1)
+    got = {k: tuple(int(d) for d in arrays[k].shape) for k in arrays}
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise ValueError(f"the weights are not YOLOv8{model}'s: "
+                         f"{len(bad)} tensors differ, first "
+                         + ", ".join(f"{k} {got.get(k)} != {want.get(k)}"
+                                     for k in bad[:3]))
 
 
 # --------------------------------------------------------------- primitives
@@ -176,11 +272,13 @@ def nms_boxes(boxes: np.ndarray, scores: np.ndarray, iou_thresh: float,
 class ObjectAwareDetector:
     """Box-proposal detector (the reference's ObjAwareModel role):
     ``__call__(image) -> (boxes_xyxy [K, 4] in image pixels, conf [K])``
-    with the reference's thresholds."""
+    with the reference's thresholds.  ``model`` names the scale the file
+    must hold (a key of :data:`YOLO_SCALES`); without it the file is taken
+    as it is."""
 
     def __init__(self, weights_npz: Optional[str] = None,
                  conf: float = 0.25, iou: float = 0.5, max_det: int = 300,
-                 device=None):
+                 device=None, model: Optional[str] = None):
         path = weights_npz or find_weights("yolov8_objaware.npz")
         if path is None:
             raise RuntimeError(
@@ -189,6 +287,10 @@ class ObjectAwareDetector:
                 "and place yolov8_objaware.npz under weights/."
             )
         self.device = resolve_device(device)
+        if model is not None:
+            with np.load(path) as data:
+                check_scale(data, model)
+        self.model = model
         self.params = load_params(path, self.device)
         self.conf = conf
         self.iou = iou
@@ -214,16 +316,25 @@ class ObjectAwareDetector:
     @torch.no_grad()
     def __call__(self, image: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         h, w = np.asarray(image).shape[:2]
-        padded, scale = self.letterbox(image)
-        boxes, scores = yolo_forward(self.params, padded)
-        boxes = boxes.cpu().numpy()
-        confs = scores.max(dim=1).values.cpu().numpy()
-        sel = confs >= self.conf
-        boxes, confs = boxes[sel], confs[sel]
-        if len(boxes) == 0:
-            return np.zeros((0, 4), np.float32), np.zeros((0,), np.float32)
-        keep = nms_boxes(boxes, confs, self.iou, self.max_det)
-        boxes, confs = boxes[keep] / scale, confs[keep]
-        boxes[:, 0::2] = boxes[:, 0::2].clip(0, w - 1)
-        boxes[:, 1::2] = boxes[:, 1::2].clip(0, h - 1)
-        return boxes.astype(np.float32), confs.astype(np.float32)
+        with profiling.span("yolo.detect"):
+            padded, scale = self.letterbox(image)
+            boxes, scores = yolo_forward(self.params, padded)
+            raw = torch.cat([boxes, scores.max(dim=1).values[:, None]], 1)
+        with profiling.span("sync.yolo"):
+            raw = raw.cpu().numpy()
+        with profiling.span("yolo.nms"):
+            boxes, confs = raw[:, :4], raw[:, 4]
+            profiling.count("yolo.anchors", len(confs))
+            sel = confs >= self.conf
+            boxes, confs = boxes[sel], confs[sel]
+            profiling.count("yolo.passed", len(confs))
+            if len(boxes) == 0:
+                profiling.count("yolo.kept", 0)
+                return np.zeros((0, 4), np.float32), \
+                    np.zeros((0,), np.float32)
+            keep = nms_boxes(boxes, confs, self.iou, self.max_det)
+            profiling.count("yolo.kept", len(keep))
+            boxes, confs = boxes[keep] / scale, confs[keep]
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, w - 1)
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, h - 1)
+            return boxes.astype(np.float32), confs.astype(np.float32)

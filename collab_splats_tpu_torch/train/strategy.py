@@ -17,6 +17,9 @@ The table keeps the JAX package's capacity + alive-mask layout, so refine
 decisions compare row for row: freed slots are ranked with a cumulative
 sum, children go to free slots by rank, and children past the free slots
 are dropped and counted (the trainer grows the capacity ahead of that).
+Each refine adds its counts to the counters ``refine.duplicated``,
+``refine.split`` (split sources) and ``refine.culled`` of
+``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..core.projection import quat_to_rotmat
 from ..models.gaussians import GaussianParams
 from ..ops.rasterize import RenderMeta
 from ..ops.segsum import segment_sum, spread_masked
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 
@@ -285,6 +289,10 @@ def refine(
 
     dropped = n_dup + total_split * n_items - torch.sum(
         written.to(torch.int64))
+    n_cull = torch.sum(culled.to(torch.int64))
+    profiling.count("refine.duplicated", n_dup)
+    profiling.count("refine.split", total_split)
+    profiling.count("refine.culled", n_cull)
     return RefineResult(
         params=new_params,
         alive=survivors | written,
@@ -292,7 +300,7 @@ def refine(
         state=StrategyState(*(torch.zeros(c, device=dev) for _ in range(3))),
         n_dup=n_dup,
         n_split=total_split,
-        n_cull=torch.sum(culled.to(torch.int64)),
+        n_cull=n_cull,
         dropped=dropped,
     )
 

@@ -31,7 +31,8 @@ around ``train.inputs``, ``train.render``, ``train.loss``,
 ``train.backward``, ``train.update``, ``train.refine`` and
 ``train.metrics``), and each of its blocking host reads a ``sync.*`` span:
 ``sync.finite`` for the guard, ``sync.metrics`` for the metrics transfer,
-``sync.alive`` for the capacity check.  They record only under a
+``sync.alive`` for the capacity check; a capacity growth adds the rows it
+adds to the counter ``train.grown_rows``.  They record only under a
 ``torch.profiler`` session.
 """
 
@@ -459,6 +460,7 @@ class Trainer:
         if n * self.config.capacity_headroom <= c:
             return
         new_c = 2 * c
+        profiling.count("train.grown_rows", new_c - c)
         grown, self.alive = grow_capacity(
             {k: v.detach() for k, v in self.params.items()}, self.alive,
             new_c)

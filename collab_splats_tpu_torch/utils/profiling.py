@@ -182,8 +182,10 @@ _OFF = contextlib.nullcontext()
 def span(name: str, **args):
     """A context manager that records the block as the span ``name``
     while a profiler session records (``args``, such as the trainer's
-    step, go with it into the trace); a shared no-op otherwise."""
-    if not enabled():
+    step, go with it into the trace); a shared no-op otherwise, and
+    inside a span of the same name that is open on this thread, which
+    already counts the block."""
+    if not enabled() or any(s.name == name for s in _LOG.stack()):
         return _OFF
     return _Span(name, ",".join(f"{k}={v}" for k, v in args.items())
                  if args else None)
